@@ -1,0 +1,361 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port (gaustar_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # every phase; needs one CUDA card
+
+Phases, one line of output each (or a few):
+  1 card     the device name and `nvidia-smi` name / power limit;
+  2 build    nvcc builds of the blend kernels (csrc/*.cu), with seconds and
+             the -Xptxas -v register / shared-memory report;
+    demand   the full-width scene's (gaussian, tile) pairs and non-empty
+             tiles at initialisation, per camera, against the JAX package's
+             record (within 1% and 8 tiles);
+  3 fwd      the forward kernel against blend_fwd_plain, channels 3 and 4, on
+             a 256x256 scene of 20k gaussians and on the 64 busiest tiles of
+             the full-width scene: colour / final T within 1e-4, n_contrib
+             and the done flag exact;
+  4 bwd      the backward kernel against blend_bwd_plain on the same inputs
+             and a seeded cotangent: rtol 1e-3, atol 1e-3 x the field's
+             inf-norm;
+  5 slice    the refine step: a small frame on the card against the same
+             frame on the CPU (plain versions), then refine_frame at full
+             width (600k gaussians, 1600x1024, 4 cameras) for ITERS
+             iterations, with finite losses and one launch of each kernel
+             per iteration, then one 4-camera batch step;
+  6 kernels  each kernel's time (CUDA events), its plain version's time and
+             its bound at full width, printed as one JSON line.
+The last line is the JSON result {"ok": true, "device": {...}}. Any failed
+phase raises, and the script exits non-zero without that line.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ITERS = 20
+WARMUP_STEPS = 3
+# The JAX package's pair demand of this scene at initialisation, the maximum
+# over the 4 cameras (bench.py's autocaps line in BENCH_r05.json): a count of
+# work, which the port's binning should reproduce.
+JAX_DEMAND_PAIRS = 975_847
+JAX_DEMAND_ACTIVE = 815
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and HBM3.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# Float operations of the blend, counted from the kernels' source (add, mul,
+# compare, min, div and exp one each). Every evaluated (pixel, pair) runs the
+# test: offsets, power, exp, alpha, the two cuts (16). An included pair adds,
+# in the forward, the T update and the channel sums (4 + 2 C); in the
+# backward, T recovery, the per-channel suffix sums, dL/dalpha and the six
+# geometric gradients (29 + 8 C), plus one add per field to sum the 256
+# pixels of each slot (6 + C).
+TEST_OPS = 16
+
+
+def fwd_included_ops(c):
+    return 4 + 2 * c
+
+
+def bwd_included_ops(c):
+    return 29 + 8 * c + 6 + c
+
+
+def log(phase, msg):
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def fail(msg):
+    raise RuntimeError(msg)
+
+
+def random_scene(torch, n, size, seed, device):
+    """(means, cov3d, opacities, features [N, 4], camera) of a seeded cloud
+    in front of one camera; feature 3 is the view depth."""
+    from gaustar_tpu_torch.ops.projection import quat_scale_to_cov3d
+    from gaustar_tpu_torch.utils.synthetic import ring_cameras
+
+    rng = np.random.default_rng(seed)
+    means = np.concatenate(
+        [rng.normal(scale=0.4, size=(n, 2)), 4.0 + rng.uniform(0, 2, (n, 1))], 1
+    ).astype(np.float32)
+    scales = np.exp(rng.normal(-3.6, 0.4, (n, 3))).astype(np.float32)
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    opac = (1 / (1 + np.exp(-rng.normal(size=n)))).astype(np.float32)
+    rgb = rng.uniform(size=(n, 3)).astype(np.float32)
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    cam = ring_cameras(1, w=size, h=size, focal=1.2 * size, device=device)[0]
+    feats = torch.cat([t(rgb), t(means[:, 2:3])], dim=1)
+    return t(means), quat_scale_to_cov3d(t(scales), t(quats)), t(opac), feats, cam
+
+
+def check_forward(torch, bc, inputs, channels, label):
+    pd, start, count, gx, W, H = inputs
+    raw_k = bc.blend_fwd_cuda(pd, start, count, gx, W, H, channels)
+    raw_p = bc.blend_fwd_plain(pd, start, count, gx, W, H, channels)
+    torch.cuda.synchronize()
+    rows = [0, 1, 2, 3, 6]
+    err = float((raw_k[:, rows] - raw_p[:, rows]).abs().max())
+    nc_bad = float((raw_k[:, 4] != raw_p[:, 4]).float().mean())
+    done_bad = float((raw_k[:, 5] != raw_p[:, 5]).float().mean())
+    log("fwd", f"{label} c{channels}: pairs={pd.shape[1]} active_tiles={int((count > 0).sum())} "
+               f"max|d colour,T|={err:.3e} n_contrib_mismatch={nc_bad:.3e} done_mismatch={done_bad:.3e}")
+    if not err <= 1e-4 or nc_bad > 0 or done_bad > 0:
+        fail(f"forward kernel disagrees with blend_fwd_plain on {label} c{channels}")
+    return raw_p, err
+
+
+def check_backward(torch, bc, inputs, channels, raw, label):
+    pd, start, count, gx, W, H = inputs
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ct = torch.zeros_like(raw)
+    for row in (0, 1, 2, 3, 6):
+        ct[:, row] = torch.randn(ct[:, row].shape, generator=gen, device="cuda")
+    g_k = bc.blend_bwd_cuda(pd, start, count, gx, W, H, channels, raw, ct)
+    g_p = bc.blend_bwd_plain(pd, start, count, gx, W, H, channels, raw, ct)
+    torch.cuda.synchronize()
+    worst = 0.0
+    max_abs = float((g_k - g_p).abs().max())
+    for row in range(6 + channels):
+        ref = g_p[row]
+        atol = 1e-3 * float(ref.abs().max())
+        excess = float(((g_k[row] - ref).abs() - 1e-3 * ref.abs() - atol).max())
+        worst = max(worst, float((g_k[row] - ref).abs().max()) / max(float(ref.abs().max()), 1e-30))
+        if excess > 0:
+            fail(f"backward kernel disagrees with blend_bwd_plain on {label} c{channels} field {row}")
+    if not torch.isfinite(g_k).all():
+        fail("backward kernel produced non-finite gradients")
+    log("bwd", f"{label} c{channels}: max |d grad| / |grad|_inf = {worst:.3e}, max |d grad| = {max_abs:.3e} "
+               f"(rtol 1e-3, atol 1e-3 |g|_inf)")
+    return max_abs
+
+
+def walk_counts(torch, bc, inputs, raw):
+    """What this data needs of the two kernels: {fwd_evals, included,
+    bwd_evals, fwd_slots, bwd_slots, active}. The forward evaluates each
+    pixel's list up to and including its stop pair (or to the end) and loads
+    a tile's pairs in batches of 256 until every pixel is done; the backward
+    evaluates positions 1 .. n_contrib and loads a tile's slots up to its
+    largest n_contrib; both do the full work only for included pairs."""
+    pd, start, count, gx, W, H = inputs
+    ids, st, ct = bc._active_tiles(start, count)
+    px, py = bc._tile_pixels(ids, gx)
+    done = (px >= W) | (py >= H)
+    T = torch.ones_like(px)
+    fwd_evals = torch.zeros((), dtype=torch.int64, device=pd.device)
+    included = torch.zeros_like(fwd_evals)
+    last = torch.zeros_like(ct)  # the last position any pixel of the tile walked
+    for k in range(int(ct.max())):
+        d, valid = bc._pair_at(pd, st, ct, k)
+        alpha, contrib, _, _, _ = bc._eval_pair(d, px, py)
+        walked = valid[:, None] & ~done
+        contrib = contrib & walked
+        test_t = T * (1.0 - alpha)
+        stop = contrib & (test_t < 1e-4)
+        inc = contrib & ~stop
+        fwd_evals += walked.sum()
+        included += inc.sum()
+        last = torch.where(walked.any(1), k + 1, last)
+        done = done | stop
+        T = torch.where(inc, test_t, T)
+    batch = bc.PIX
+    fwd_slots = torch.minimum(ct, (last + batch - 1) // batch * batch).sum()
+    nc = raw[ids, 4]
+    return {"fwd_evals": int(fwd_evals), "included": int(included), "bwd_evals": int(nc.double().sum()),
+            "fwd_slots": int(fwd_slots), "bwd_slots": int(nc.amax(1).double().sum()), "active": int(ids.numel())}
+
+
+def blend_bounds(n_tiles, n_pairs, channels, w):
+    """(ms, 'bytes' | 'operations') of each kernel's bound on this data, `w`
+    from walk_counts. Bytes: the fields the kernel reads (6 + C) of each pair
+    slot it loads; tile_count of every tile and tile_start of the active ones;
+    the forward writes the whole raw state, the backward reads final T and
+    n_contrib (2 rows) and the colour and final-T cotangents (C + 1 rows) of
+    the active tiles and writes every slot's 6 + C gradients once."""
+    nf, tiles = 6 + channels, 4 * n_tiles + 4 * w["active"]
+    row = 256 * 4  # one state row of one tile
+    fwd = bound(4 * nf * w["fwd_slots"] + tiles + 8 * row * n_tiles,
+                TEST_OPS * w["fwd_evals"] + fwd_included_ops(channels) * w["included"])
+    bwd = bound(4 * nf * w["bwd_slots"] + tiles + (2 + channels + 1) * row * w["active"] + 4 * nf * n_pairs,
+                TEST_OPS * w["bwd_evals"] + bwd_included_ops(channels) * w["included"])
+    return fwd, bwd
+
+
+def cuda_ms(torch, fn, iters, warmup=2):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def bound(bytes_moved, flops):
+    t_bytes = bytes_moved / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
+        return 1
+    from gaustar_tpu_torch.cameras import index_camera
+    from gaustar_tpu_torch.ops import _build
+    from gaustar_tpu_torch.ops import blend_cuda as bc
+    from gaustar_tpu_torch.train import refine
+    from gaustar_tpu_torch.train.optimizer import OptimizationParams, adam_init, make_lr_fn
+    from gaustar_tpu_torch.utils.synthetic import blend_inputs, reference_scene, render_inputs, synthetic_frame
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # 1 card
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log("card", f"{kind}; torch {torch.__version__} cuda {torch.version.cuda}")
+    print(smi, flush=True)
+
+    # 2 build
+    t0 = time.perf_counter()
+    build_log = _build.build(["blend_fwd", "blend_bwd"])
+    for name, entry in build_log.items():
+        usage = [ln.strip() for ln in entry["log"].splitlines() if "registers" in ln or "smem" in ln]
+        log("build", f"{name}: {entry['seconds']:.1f} s; " + " | ".join(usage))
+    log("build", f"wall {time.perf_counter() - t0:.1f} s")
+
+    # 3-4 kernels against their plain versions
+    small = random_scene(torch, 20_000, 256, seed=3, device="cuda")
+    params, config, data, raster_cfg = reference_scene("cuda")
+    n_cams = data.gt_images.shape[0]
+    demand = []
+    for i in range(n_cams):
+        pd, _, count, *_ = blend_inputs(*render_inputs(params, config, index_camera(data.cameras, i)), 4)
+        demand.append((pd.shape[1], int((count > 0).sum())))
+    d_pairs, d_active = max(p for p, _ in demand), max(a for _, a in demand)
+    log("demand", f"full width at init, (pairs, active tiles) per camera {demand}; max {d_pairs} pairs, "
+                  f"{d_active} active tiles (the JAX package's record, BENCH_r05.json: 975847, 815)")
+    if abs(d_pairs - JAX_DEMAND_PAIRS) > 0.01 * JAX_DEMAND_PAIRS or abs(d_active - JAX_DEMAND_ACTIVE) > 8:
+        fail("the full-width binning is far from the JAX package's pair demand")
+    full = render_inputs(params, config, index_camera(data.cameras, 0))
+    for channels in (3, 4):
+        for label, scene, top in (("256x256/20k", small, None), ("full-width top-64 tiles", full, 64)):
+            inputs = blend_inputs(*scene, channels, top_tiles=top)
+            raw = check_forward(torch, bc, inputs, channels, label)[0]
+            check_backward(torch, bc, inputs, channels, raw, label)
+
+    # 5 the slice
+    p_s, c_s, d_s, _, rc_s = synthetic_frame(device="cuda")
+    p_c, c_c, d_c, _, rc_c = synthetic_frame(device="cpu")
+    cfg_s = refine.RefineConfig(num_iterations=4, loose_bind_from=10**9)
+    l_g, _ = refine.compute_losses(p_s, c_s, d_s, 1, 1, cfg_s, rc_s, 2)
+    l_c, _ = refine.compute_losses(p_c, c_c, d_c, 1, 1, cfg_s, rc_c, 2)
+    gg = torch.autograd.grad(l_g, [p_s.points, p_s.scales, p_s.sh_dc])
+    gc = torch.autograd.grad(l_c, [p_c.points, p_c.scales, p_c.sh_dc])
+    gerr = max(float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(gg, gc))
+    l_g, l_c = float(l_g.detach()), float(l_c.detach())
+    log("slice", f"48x48 frame, card vs CPU plain path: loss {l_g:.6f} vs {l_c:.6f}, "
+                 f"max grad diff / |grad|_inf {gerr:.2e}")
+    if abs(l_g - l_c) > 1e-4 * abs(l_c) or gerr > 1e-3:
+        fail("the refine loss on the card disagrees with the CPU plain path")
+
+    cfg = refine.RefineConfig(num_iterations=ITERS, loose_bind_from=10**9, do_sh_warmup=False)
+    stamps = []
+
+    def on_log(entry):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        if not all(np.isfinite(v) for v in entry.values()):
+            fail(f"non-finite loss at iteration {entry['iteration']}: {entry}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bc.reset_launch_counts()
+    t0 = time.perf_counter()
+    out_params, _, history = refine.refine_frame(params, config, data, cfg, raster_cfg,
+                                                 log_every=1, log_fn=on_log)
+    torch.cuda.synchronize()
+    launches = dict(bc.LAUNCHES)
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    steps_ms = [1e3 * (b - a) for a, b in zip(stamps[WARMUP_STEPS - 1:], stamps[WARMUP_STEPS:])]
+    median_ms = statistics.median(steps_ms)
+    n_g = params.scales.shape[0]
+    height, width = data.gt_images.shape[1:3]
+    log("slice", f"refine_frame {ITERS} its: {n_g} gaussians, {width}x{height}, {n_cams} cameras; "
+                 f"launches {launches}; wall {wall:.2f} s; median step {median_ms:.2f} ms "
+                 f"(steps {WARMUP_STEPS + 1}-{ITERS}); peak mem {peak_gb:.2f} GiB; "
+                 f"num_pairs {int(history[-1]['num_pairs'])}; loss {history[0]['loss']:.5f} -> {history[-1]['loss']:.5f}")
+    if len(history) != ITERS or launches != {"blend_fwd": ITERS, "blend_bwd": ITERS}:
+        fail(f"main path launched the kernels {launches}, expected {ITERS} each")
+    moved = float((out_params.points - params.points).detach().abs().max())
+    if not moved > 0:
+        fail("refine_frame did not move the mesh vertices")
+
+    bc.reset_launch_counts()
+    opt_state = adam_init(out_params)
+    lr_fn = make_lr_fn(OptimizationParams(), 1.0)
+    loss_b, ld_b = refine.train_step(out_params, opt_state, lr_fn, config, data, [0, 1, 2, 3], 1,
+                                     cfg, raster_cfg, 2)
+    torch.cuda.synchronize()
+    if not np.isfinite(float(loss_b)) or dict(bc.LAUNCHES) != {"blend_fwd": 4, "blend_bwd": 4}:
+        fail(f"B=4 step: loss {float(loss_b)}, launches {bc.LAUNCHES}")
+    log("slice", f"compute_losses_multi B=4 step: loss {float(loss_b):.5f}, launches {dict(bc.LAUNCHES)}")
+
+    # 6 kernel times at full width (camera 0, the fused 4-channel blend)
+    inputs = blend_inputs(*full, 4)
+    pd, start, count, gx, W, H = inputs
+    raw = bc.blend_fwd_cuda(*inputs, 4)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    ct = torch.randn(raw.shape, generator=gen, device="cuda")
+    fwd_ms = cuda_ms(torch, lambda: bc.blend_fwd_cuda(*inputs, 4), iters=50)
+    bwd_ms = cuda_ms(torch, lambda: bc.blend_bwd_cuda(*inputs, 4, raw, ct), iters=50)
+    fwd_plain_ms = cuda_ms(torch, lambda: bc.blend_fwd_plain(*inputs, 4), iters=1, warmup=1)
+    bwd_plain_ms = cuda_ms(torch, lambda: bc.blend_bwd_plain(*inputs, 4, raw, ct), iters=1, warmup=1)
+
+    n_tiles, n_pairs = start.shape[0], pd.shape[1]
+    walk = walk_counts(torch, bc, inputs, raw)
+    fwd_bound, bwd_bound = blend_bounds(n_tiles, n_pairs, 4, walk)
+    kernels = [
+        {"name": "blend_fwd", "route": "cuda", "source": "gaustar_tpu_torch/csrc/blend_fwd.cu",
+         "replaces": "gaustar_tpu/ops/blend_pallas.py:256", "launches": launches["blend_fwd"],
+         "launches_per_step": launches["blend_fwd"] / ITERS,
+         "max_abs_err": check_forward(torch, bc, inputs, 4, "full-width all tiles")[1],
+         "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+         "library_ms": None},
+        {"name": "blend_bwd", "route": "cuda", "source": "gaustar_tpu_torch/csrc/blend_bwd.cu",
+         "replaces": "gaustar_tpu/ops/blend_pallas.py:504", "launches": launches["blend_bwd"],
+         "launches_per_step": launches["blend_bwd"] / ITERS,
+         "max_abs_err": check_backward(torch, bc, inputs, 4, raw, "full-width all tiles"),
+         "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+         "library_ms": None},
+    ]
+    log("kernels", f"full width cam 0: pairs {n_pairs}, active tiles {walk['active']} of {n_tiles}, "
+                   f"longest tile list {int(count.max())}, median active {int(count[count > 0].median())}; "
+                   f"evaluations fwd {walk['fwd_evals']} bwd {walk['bwd_evals']}, included {walk['included']}; "
+                   f"slots loaded fwd {walk['fwd_slots']} bwd {walk['bwd_slots']}; "
+                   f"bounds fwd {fwd_bound[0]:.4f} ms ({fwd_bound[1]}) bwd {bwd_bound[0]:.4f} ms ({bwd_bound[1]}); "
+                   f"median step {median_ms:.2f} ms; total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,88 @@
+"""Builds the port's CUDA sources at first use and loads them with ctypes.
+
+Each `csrc/<name>.cu` has a plain C interface and compiles with nvcc alone
+(no PyTorch headers: seconds, not minutes) into
+`build/kernels/lib<name>-<hash>.so` at the repo root, keyed by the hash of
+the source and the flags, so an edited source is rebuilt. `build()` starts one
+nvcc per source, all at once.
+
+`-fmad=false`: the blend's discrete decisions (power <= 0, alpha >= 1/255,
+T * (1 - alpha) < 1e-4, and so `n_contrib`) flip on one ULP. Without FMA
+contraction every product and sum rounds separately, as in the plain PyTorch
+version, which runs each operation as its own kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+BUILD_LOG: dict[str, dict] = {}  # name -> {"seconds": s, "log": nvcc output}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
+    return path
+
+
+def lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names) -> dict[str, dict]:
+    """Compile the named sources that are not built yet, one nvcc process
+    each, all started together. Returns BUILD_LOG; raises if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        procs[name] = (proc, tmp, out, time.perf_counter())
+    errors = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        if proc.returncode != 0:
+            errors.append(f"{name}:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    return BUILD_LOG
+
+
+def load(name: str, argtypes) -> ctypes.CDLL:
+    """The built library of `csrc/<name>.cu` (built now if missing), with the
+    C function `name` bound to `argtypes` and an int (cudaError_t) result."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = lib_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib

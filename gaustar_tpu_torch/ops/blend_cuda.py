@@ -1,0 +1,286 @@
+"""Tile blend forward and backward: the CUDA kernels for Hopper and their
+plain PyTorch versions (counterpart of gaustar_tpu/ops/blend_pallas.py).
+
+Inputs, shared by every function here:
+  pair_data  [F, P] float32 SoA rows 0 x, 1 y, 2-4 conic A/B/C, 5 opacity,
+             6.. features (F >= 6 + channels; ops/binning.gather_pair_data);
+  tile_start, tile_count  [T] int32: tile t owns pairs start .. start+count,
+             front to back;
+  the raw state [T, 8, 256] float32 of the forward, as the JAX kernel's:
+             rows 0-2 colour, 3 final T, 4 n_contrib (1-based list position
+             of the last included pair), 5 done, 6 channel 3 (fused depth),
+             7 zero. Empty tiles hold colour 0, T 1, n_contrib 0.
+
+The blend (forward.cu:261-374): power = -1/2 (A dx^2 + C dy^2) - B dx dy,
+alpha = min(0.99, op e^power), a pair is skipped if power > 0 or
+alpha < 1/255, and the pixel stops before the first pair with
+T (1 - alpha) < 1e-4. The backward (backward.cu:400-557) walks each pixel's
+included pairs back to front, recovering T as T / (1 - alpha) from the saved
+final T, and returns per-pair-slot gradients [F, P]; d alpha / d G ignores the
+0.99 clamp. The final-T cotangent (row 3) adds -(T_final / (1 - alpha)) dT to
+dL/dalpha: the background is composited outside the blend, so this is how its
+gradient reaches the gaussians.
+
+`blend_raw` is the autograd.Function boundary, the same as the JAX custom VJP:
+differentiable in pair_data only. On CUDA tensors it launches the kernels
+(csrc/blend_fwd.cu, csrc/blend_bwd.cu) and never falls back; on CPU tensors
+it runs the plain versions, which is how the CPU tests run.
+
+The plain versions walk the pair positions in a Python loop, vectorized over
+tiles and pixels. Each step rounds exactly as the kernel's per-pixel loop does
+(the kernels are built without FMA contraction), so the discrete decisions,
+and `n_contrib`, agree exactly; only the per-slot sums over 256 pixels are
+taken in another order. Memory is O(tiles x 256) whatever the pair count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gaustar_tpu_torch.ops import _build
+from gaustar_tpu_torch.ops.projection import TILE
+from gaustar_tpu_torch.ops.rasterizer_ref import clamp_alpha_ste
+
+PIX = TILE * TILE
+STATE_ROWS = 8
+
+# Launches of each kernel, counted by its wrapper where it launches.
+LAUNCHES = {"blend_fwd": 0, "blend_bwd": 0}
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def state_row(ch: int) -> int:
+    """Raw-state row of blend channel `ch` (channel 3 rides row 6)."""
+    return ch if ch < 3 else 6
+
+
+def _check_inputs(pair_data, tile_start, tile_count, channels):
+    if channels not in (3, 4):
+        raise ValueError(f"blend supports 3 or 4 channels, got {channels}")
+    if pair_data.dtype != torch.float32 or pair_data.dim() != 2 or pair_data.shape[0] < 6 + channels:
+        raise ValueError(f"pair_data must be float32 [>= {6 + channels}, P], got {pair_data.dtype} {tuple(pair_data.shape)}")
+    if tile_start.shape != tile_count.shape or tile_start.dim() != 1:
+        raise ValueError("tile_start and tile_count must be [T] and equal in shape")
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def _tile_pixels(tile_ids, grid_x):
+    flat = torch.arange(PIX, device=tile_ids.device)
+    px = ((tile_ids % grid_x)[:, None] * TILE + flat % TILE).to(torch.float32)
+    py = ((tile_ids // grid_x)[:, None] * TILE + flat // TILE).to(torch.float32)
+    return px, py
+
+
+def _active_tiles(tile_start, tile_count):
+    ids = torch.nonzero(tile_count > 0).flatten()
+    return ids, tile_start[ids].to(torch.int64), tile_count[ids].to(torch.int64)
+
+
+def _pair_at(pair_data, start, count, k: int):
+    """Fields [F, Tn] of each tile's k-th pair, and whether it exists [Tn]."""
+    valid = count > k
+    slot = start + torch.clamp(torch.clamp(count - 1, max=k), min=0)
+    return pair_data[:, slot], valid
+
+
+def _eval_pair(d, px, py):
+    dx = d[0][:, None] - px
+    dy = d[1][:, None] - py
+    A, B, C = d[2][:, None], d[3][:, None], d[4][:, None]
+    op = d[5][:, None]
+    power = -0.5 * (A * dx * dx + C * dy * dy) - B * dx * dy
+    g = torch.exp(power)
+    alpha = clamp_alpha_ste(op * g)
+    contrib = (power <= 0.0) & (alpha >= 1.0 / 255.0)
+    return alpha, contrib, g, dx, dy
+
+
+def blend_fwd_plain(pair_data, tile_start, tile_count, grid_x, width, height, channels):
+    """Forward blend -> raw state [T, 8, 256]. Differentiable by autograd
+    (with the straight-through 0.99 clamp), which the tests use to check
+    blend_bwd_plain."""
+    _check_inputs(pair_data, tile_start, tile_count, channels)
+    n_tiles = tile_start.shape[0]
+    empty = torch.zeros((n_tiles, STATE_ROWS, PIX), dtype=torch.float32, device=pair_data.device)
+    empty[:, 3] = 1.0
+    ids, start, count = _active_tiles(tile_start, tile_count)
+    if ids.numel() == 0:
+        return empty
+    px, py = _tile_pixels(ids, grid_x)
+    done = (px >= width) | (py >= height)
+    T = torch.ones_like(px)
+    col = [torch.zeros_like(px) for _ in range(channels)]
+    nc = torch.zeros_like(px)
+    zero = torch.zeros_like(px)
+    for k in range(int(count.max())):
+        d, valid = _pair_at(pair_data, start, count, k)
+        alpha, contrib, _, _, _ = _eval_pair(d, px, py)
+        contrib = contrib & valid[:, None] & ~done
+        test_t = T * (1.0 - alpha)
+        stop = contrib & (test_t < 1e-4)
+        inc = contrib & ~stop
+        done = done | stop
+        for ch in range(channels):
+            col[ch] = torch.where(inc, col[ch] + d[6 + ch][:, None] * alpha * T, col[ch])
+        T = torch.where(inc, test_t, T)
+        nc = torch.where(inc, zero + (k + 1), nc)
+    rows = [col[0], col[1], col[2], T, nc, done.to(torch.float32),
+            col[3] if channels == 4 else zero, zero]
+    return empty.index_put((ids,), torch.stack(rows, dim=1))
+
+
+def blend_bwd_plain(pair_data, tile_start, tile_count, grid_x, width, height, channels, fwd, dout):
+    """Backward blend: per-pair-slot gradients [F, P] from the forward's raw
+    state and its cotangent (rows 0-3 and 6 are read). The formulas of
+    backward.cu written out (no autograd); slots never walked stay zero."""
+    _check_inputs(pair_data, tile_start, tile_count, channels)
+    grads = torch.zeros_like(pair_data)
+    ids, start, count = _active_tiles(tile_start, tile_count)
+    if ids.numel() == 0:
+        return grads
+    px, py = _tile_pixels(ids, grid_x)
+    t_final = fwd[ids, 3]
+    nc = fwd[ids, 4]
+    d_t = dout[ids, 3]
+    d_c = [dout[ids, state_row(ch)] for ch in range(channels)]
+    zero = torch.zeros_like(px)
+    T = t_final.clone()
+    acc = [zero] * channels
+    last_c = [zero] * channels
+    last_alpha = zero
+    k_max = int(nc.max())
+    for k in range(k_max - 1, -1, -1):
+        d, valid = _pair_at(pair_data, start, count, k)
+        alpha, contrib, g, dx, dy = _eval_pair(d, px, py)
+        inc = contrib & valid[:, None] & (nc >= k + 1)
+        T = torch.where(inc, T / (1.0 - alpha), T)
+        w = alpha * T
+        dl_da = zero
+        g_feat = []
+        for ch in range(channels):
+            c = d[6 + ch][:, None]
+            acc[ch] = torch.where(inc, last_alpha * last_c[ch] + (1.0 - last_alpha) * acc[ch], acc[ch])
+            last_c[ch] = torch.where(inc, c.expand_as(zero), last_c[ch])
+            dl_da = dl_da + (c - acc[ch]) * d_c[ch]
+            g_feat.append(torch.where(inc, w * d_c[ch], zero))
+        dl_da = dl_da * T
+        last_alpha = torch.where(inc, alpha, last_alpha)
+        dl_da = dl_da + (-t_final / (1.0 - alpha)) * d_t
+        q = torch.where(inc, g * dl_da, zero)
+        A, B, C = d[2][:, None], d[3][:, None], d[4][:, None]
+        op = d[5][:, None]
+        per_pixel = [
+            -op * q * (A * dx + B * dy),
+            -op * q * (C * dy + B * dx),
+            -0.5 * op * q * dx * dx,
+            -op * q * dx * dy,
+            -0.5 * op * q * dy * dy,
+            q,
+        ] + g_feat
+        sums = torch.stack(per_pixel, dim=0).sum(dim=-1)  # [6 + C, Tn]
+        slot = (start + k)[valid]
+        grads[: 6 + channels, slot] = sums[:, valid]
+    return grads
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels (csrc/blend_fwd.cu, csrc/blend_bwd.cu)
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_FWD_ARGS = [_P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+_BWD_ARGS = [_P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]
+
+
+def _check_cuda(pair_data, tile_start, tile_count, channels, *states):
+    _check_inputs(pair_data, tile_start, tile_count, channels)
+    dev = pair_data.device
+    if dev.type != "cuda":
+        raise ValueError("the blend kernels take CUDA tensors")
+    if not pair_data.is_contiguous():
+        raise ValueError("pair_data must be contiguous")
+    for t in (tile_start, tile_count):
+        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("tile_start / tile_count must be contiguous int32 on the pair_data device")
+    n_tiles = tile_start.shape[0]
+    for s in states:
+        if s.device != dev or s.dtype != torch.float32 or s.shape != (n_tiles, STATE_ROWS, PIX) or not s.is_contiguous():
+            raise ValueError(f"blend state must be contiguous float32 [{n_tiles}, {STATE_ROWS}, {PIX}]")
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+
+
+def blend_fwd_cuda(pair_data, tile_start, tile_count, grid_x, width, height, channels):
+    """Launch csrc/blend_fwd.cu: one 256-thread block per tile -> raw state."""
+    _check_cuda(pair_data, tile_start, tile_count, channels)
+    lib = _build.load("blend_fwd", _FWD_ARGS)
+    n_tiles = tile_start.shape[0]
+    out = torch.empty((n_tiles, STATE_ROWS, PIX), dtype=torch.float32, device=pair_data.device)
+    err = lib.blend_fwd(
+        pair_data.data_ptr(), pair_data.stride(0), tile_start.data_ptr(), tile_count.data_ptr(),
+        n_tiles, grid_x, width, height, channels, out.data_ptr(),
+        torch.cuda.current_stream(pair_data.device).cuda_stream,
+    )
+    _raise_on(err, "blend_fwd")
+    LAUNCHES["blend_fwd"] += 1
+    return out
+
+
+def blend_bwd_cuda(pair_data, tile_start, tile_count, grid_x, width, height, channels, fwd, dout):
+    """Launch csrc/blend_bwd.cu: one block per tile, back to front -> [F, P]."""
+    _check_cuda(pair_data, tile_start, tile_count, channels, fwd, dout)
+    lib = _build.load("blend_bwd", _BWD_ARGS)
+    n_tiles = tile_start.shape[0]
+    grads = torch.zeros_like(pair_data)
+    err = lib.blend_bwd(
+        pair_data.data_ptr(), pair_data.stride(0), tile_start.data_ptr(), tile_count.data_ptr(),
+        n_tiles, grid_x, width, height, channels, fwd.data_ptr(), dout.data_ptr(),
+        grads.data_ptr(), torch.cuda.current_stream(pair_data.device).cuda_stream,
+    )
+    _raise_on(err, "blend_bwd")
+    LAUNCHES["blend_bwd"] += 1
+    return grads
+
+
+class BlendRaw(torch.autograd.Function):
+    """Raw blend state [T, 8, 256], differentiable in pair_data only (the JAX
+    package's blend_tiles_pallas_raw custom VJP). Cotangents of rows 4, 5
+    and 7 are structurally zero and never read."""
+
+    @staticmethod
+    def forward(ctx, pair_data, tile_start, tile_count, grid_x, width, height, channels):
+        if pair_data.is_cuda:
+            raw = blend_fwd_cuda(pair_data, tile_start, tile_count, grid_x, width, height, channels)
+        else:
+            raw = blend_fwd_plain(pair_data, tile_start, tile_count, grid_x, width, height, channels)
+        ctx.save_for_backward(pair_data, tile_start, tile_count, raw)
+        ctx.meta = (grid_x, width, height, channels)
+        return raw
+
+    @staticmethod
+    def backward(ctx, ct):
+        pair_data, tile_start, tile_count, raw = ctx.saved_tensors
+        args = (pair_data, tile_start, tile_count, *ctx.meta, raw, ct.contiguous())
+        if pair_data.is_cuda:
+            grads = blend_bwd_cuda(*args)
+        else:
+            grads = blend_bwd_plain(*args)
+        return grads, None, None, None, None, None, None
+
+
+def blend_raw(pair_data, tile_start, tile_count, grid_x: int, width: int, height: int, channels: int):
+    return BlendRaw.apply(pair_data, tile_start, tile_count, grid_x, width, height, channels)

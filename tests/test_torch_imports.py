@@ -1,0 +1,36 @@
+"""The port, and the scripts and tests that run it on a card (where JAX is not
+installed), import neither JAX, optax nor anything of the JAX package."""
+
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "gaustar_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "profile_step.py", ROOT / "tests" / "test_torch_kernels_gpu.py"]
+FORBIDDEN = ("jax", "jaxlib", "optax", "gaustar_tpu")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+def test_port_has_modules():
+    names = {p.relative_to(ROOT / "gaustar_tpu_torch").as_posix() for p in PORT_FILES if "gaustar_tpu_torch" in p.parts}
+    for required in ("cameras.py", "bridge.py", "ops/blend_cuda.py", "ops/binning.py",
+                     "models/sugar.py", "train/refine.py", "train/optimizer.py"):
+        assert required in names

@@ -1,0 +1,118 @@
+"""The port's CUDA blend kernels on the card: against their plain PyTorch
+versions, through the golden fixtures, and in the refine step. Every test
+needs a CUDA card and skips without one. JAX is not imported, so the file runs
+on a machine without it:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py -q
+"""
+
+import glob
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from gaustar_tpu_torch.cameras import Camera
+from gaustar_tpu_torch.ops import binning
+from gaustar_tpu_torch.ops import blend_cuda as bc
+from gaustar_tpu_torch.ops.projection import TILE, preprocess, quat_scale_to_cov3d
+from gaustar_tpu_torch.ops.rasterizer import rasterize
+from gaustar_tpu_torch.train import refine
+from gaustar_tpu_torch.utils.synthetic import synthetic_frame
+
+pytestmark = pytest.mark.gpu
+
+GOLDEN = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "golden", "*.npz")))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the blend kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _blend_inputs(device, channels, n=3000, size=64, seed=3):
+    rng = np.random.default_rng(seed)
+    means = np.concatenate([rng.normal(scale=0.4, size=(n, 2)), 4.0 + rng.uniform(0, 2, (n, 1))], 1)
+    scales = np.exp(rng.normal(-3.0, 0.4, (n, 3)))
+    quats = rng.normal(size=(n, 4))
+    opac = 1 / (1 + np.exp(-rng.normal(size=n)))
+    opac[: n // 4] = 0.995  # opaque front: sticky stops and the 0.99 clamp
+    feats = rng.uniform(size=(n, channels))
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    cam = Camera.from_w2c(np.eye(4), 1.2 * size, 1.2 * size, size / 2, size / 2, size, size - 8, device=device)
+    g = preprocess(t(means), quat_scale_to_cov3d(t(scales), t(quats)), t(opac), t(feats), cam)
+    grid_x = (cam.width + TILE - 1) // TILE
+    grid_y = (cam.height + TILE - 1) // TILE
+    b = binning.bin_gaussians(g, grid_x, grid_y)
+    pd = binning.gather_pair_data(g, b).contiguous()
+    return pd, b.tile_start, b.tile_count, grid_x, cam.width, cam.height
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+def test_kernels_match_plain_versions(cuda, channels):
+    args = (*_blend_inputs(cuda, channels), channels)
+    raw_k = bc.blend_fwd_cuda(*args)
+    raw_p = bc.blend_fwd_plain(*args)
+    assert (raw_p[:, 4] > 0).any() and (raw_p[:, 5] > 0).any()
+    # -fmad=false: the kernel rounds each step as the plain version does, so
+    # the discrete decisions agree exactly; 1e-4 leaves room for expf's last bit.
+    torch.testing.assert_close(raw_k[:, [0, 1, 2, 3, 6]], raw_p[:, [0, 1, 2, 3, 6]], rtol=0, atol=1e-4)
+    assert torch.equal(raw_k[:, 4], raw_p[:, 4]) and torch.equal(raw_k[:, 5], raw_p[:, 5])
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    ct = torch.zeros_like(raw_p)
+    for row in (0, 1, 2, 3, 6):
+        ct[:, row] = torch.randn(ct[:, row].shape, generator=gen, device=cuda)
+    g_k = bc.blend_bwd_cuda(*args, raw_p, ct)
+    g_p = bc.blend_bwd_plain(*args, raw_p, ct)
+    # per-slot sums over 256 pixels, taken in another order (warp shuffles)
+    for row in range(6 + channels):
+        atol = 1e-3 * float(g_p[row].abs().max())
+        torch.testing.assert_close(g_k[row], g_p[row], rtol=1e-3, atol=atol)
+
+
+def test_blend_raw_launches_each_kernel_once(cuda):
+    pd, start, count, gx, w, h = _blend_inputs(cuda, 4)
+    pd = pd.clone().requires_grad_()
+    bc.reset_launch_counts()
+    bc.blend_raw(pd, start, count, gx, w, h, 4)[:, 0].sum().backward()
+    assert bc.LAUNCHES == {"blend_fwd": 1, "blend_bwd": 1}
+    assert torch.isfinite(pd.grad).all()
+
+
+@pytest.mark.parametrize("path", GOLDEN, ids=[os.path.basename(p)[:-4] for p in GOLDEN])
+def test_golden_fixture_through_kernels(cuda, path):
+    z = np.load(path)
+    cam = Camera.from_w2c(z["w2c"], float(z["fx"]), float(z["fy"]), float(z["cx"]), float(z["cy"]),
+                          int(z["width"]), int(z["height"]), device=cuda)
+    leaves = [torch.tensor(z[k], device=cuda, requires_grad=True)
+              for k in ("means3d", "scales", "quats", "opacities", "colors")]
+    m, s, q, o, c = leaves
+    img, aux = rasterize(m, quat_scale_to_cov3d(s, q), o, c, cam, bg=tuple(z["bg"]))
+    probe, probe_t = (torch.as_tensor(z[k], device=cuda) for k in ("probe", "probe_t"))
+    ((img * probe).sum() + (aux.final_T * probe_t).sum()).backward()
+    # tolerances of tests/test_golden.py
+    np.testing.assert_allclose(img.detach().cpu().numpy(), z["image"], atol=3e-5)
+    np.testing.assert_allclose(aux.final_T.detach().cpu().numpy(), z["final_T"], atol=3e-5)
+    np.testing.assert_array_equal(aux.n_contrib.cpu().numpy(), z["n_contrib"])
+    for key, leaf in zip(("g_means3d", "g_scales", "g_quats", "g_opacities", "g_colors"), leaves):
+        ref = z[key]
+        np.testing.assert_allclose(leaf.grad.cpu().numpy(), ref, rtol=2e-3,
+                                   atol=max(2e-4, 1e-2 * float(np.abs(ref).max())), err_msg=key)
+
+
+def test_refine_step_on_card_matches_cpu(cuda):
+    cfg = refine.RefineConfig(num_iterations=4, loose_bind_from=10**9)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        p, c, d, _, rc = synthetic_frame(device=dev)
+        loss, _ = refine.compute_losses(p, c, d, 1, 1, cfg, rc, 2)
+        grads = torch.autograd.grad(loss, [p.points, p.scales, p.sh_dc])
+        out[dev.type] = (float(loss.detach()), [g.cpu() for g in grads])
+    (l_g, g_g), (l_c, g_c) = out["cuda"], out["cpu"]
+    assert abs(l_g - l_c) <= 1e-4 * abs(l_c)
+    for a, b in zip(g_g, g_c):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3 * float(b.abs().max()))
