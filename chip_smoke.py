@@ -8,12 +8,13 @@ Phases, one line of output each (or a few):
   2 build    nvcc builds of the blend kernels (csrc/*.cu), with seconds and
              the -Xptxas -v register / shared-memory report;
     demand   the full-width scene's (gaussian, tile) pairs and non-empty
-             tiles at initialisation, per camera, against the JAX package's
-             record (within 1% and 8 tiles);
+             tiles at initialisation, per camera; their maximum must equal
+             the JAX package's count on the CPU exactly;
   3 fwd      the forward kernel against blend_fwd_plain, channels 3 and 4, on
              a 256x256 scene of 20k gaussians and on the 64 busiest tiles of
-             the full-width scene: colour / final T within 1e-4, n_contrib
-             and the done flag exact;
+             the full-width scene (4 channels also with every opacity at
+             0.9): colour / final T within 1e-4, n_contrib and the done flag
+             exact;
   4 bwd      the backward kernel against blend_bwd_plain on the same inputs
              and a seeded cotangent: rtol 1e-3, atol 1e-3 x the field's
              inf-norm;
@@ -22,8 +23,10 @@ Phases, one line of output each (or a few):
              width (600k gaussians, 1600x1024, 4 cameras) for ITERS
              iterations, with finite losses and one launch of each kernel
              per iteration, then one 4-camera batch step;
-  6 kernels  each kernel's time (CUDA events), its plain version's time and
-             its bound at full width, printed as one JSON line.
+  6 kernels  each kernel's time (CUDA events) at full width, at the initial
+             opacities and at 0.9 and on the longest tile alone, the CUDA
+             kernels it launches and its scratch bytes, its plain version's
+             time and its bound, printed as one JSON line.
 The last line is the JSON result {"ok": true, "device": {...}}. Any failed
 phase raises, and the script exits non-zero without that line.
 """
@@ -31,6 +34,7 @@ phase raises, and the script exits non-zero without that line.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -41,10 +45,13 @@ import numpy as np
 ITERS = 20
 WARMUP_STEPS = 3
 # The JAX package's pair demand of this scene at initialisation, the maximum
-# over the 4 cameras (bench.py's autocaps line in BENCH_r05.json): a count of
-# work, which the port's binning should reproduce.
-JAX_DEMAND_PAIRS = 975_847
-JAX_DEMAND_ACTIVE = 815
+# over the 4 cameras: bench.py's build_scene and probe_pair_demand run on the
+# CPU. The port's binning must reproduce it exactly. (The package's TPU
+# record, 975,847 pairs and 815 tiles in BENCH_r05.json, differs through the
+# TPU's arithmetic, not the binning.)
+JAX_DEMAND_PAIRS = 975_378
+JAX_DEMAND_ACTIVE = 808
+HIGH_OPACITY = 0.9  # the kind of value trained gaussians reach
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -95,11 +102,23 @@ def random_scene(torch, n, size, seed, device):
     return t(means), quat_scale_to_cov3d(t(scales), t(quats)), t(opac), feats, cam
 
 
-def check_forward(torch, bc, inputs, channels, label):
-    pd, start, count, gx, W, H = inputs
-    raw_k = bc.blend_fwd_cuda(pd, start, count, gx, W, H, channels)
-    raw_p = bc.blend_fwd_plain(pd, start, count, gx, W, H, channels)
+def timed_call(torch, fn):
+    """(fn(), its ms between CUDA events)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
     torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def check_forward(torch, bc, inputs, channels, label):
+    """(plain raw state, the kernel's split for the backward, max |error| of
+    colour and T, the plain call's ms)."""
+    pd, start, count, gx, W, H = inputs
+    raw_k, split = bc.blend_fwd_split(pd, start, count, gx, W, H, channels)
+    raw_p, plain_ms = timed_call(torch, lambda: bc.blend_fwd_plain(pd, start, count, gx, W, H, channels))
     rows = [0, 1, 2, 3, 6]
     err = float((raw_k[:, rows] - raw_p[:, rows]).abs().max())
     nc_bad = float((raw_k[:, 4] != raw_p[:, 4]).float().mean())
@@ -108,18 +127,19 @@ def check_forward(torch, bc, inputs, channels, label):
                f"max|d colour,T|={err:.3e} n_contrib_mismatch={nc_bad:.3e} done_mismatch={done_bad:.3e}")
     if not err <= 1e-4 or nc_bad > 0 or done_bad > 0:
         fail(f"forward kernel disagrees with blend_fwd_plain on {label} c{channels}")
-    return raw_p, err
+    return raw_p, split, err, plain_ms
 
 
-def check_backward(torch, bc, inputs, channels, raw, label):
+def check_backward(torch, bc, inputs, channels, raw, split, label):
+    """(max |error| of the gradients, the plain call's ms). The kernel reads
+    the forward's test bits (`split`), as the main path's backward does."""
     pd, start, count, gx, W, H = inputs
     gen = torch.Generator(device="cuda").manual_seed(7)
     ct = torch.zeros_like(raw)
     for row in (0, 1, 2, 3, 6):
         ct[:, row] = torch.randn(ct[:, row].shape, generator=gen, device="cuda")
-    g_k = bc.blend_bwd_cuda(pd, start, count, gx, W, H, channels, raw, ct)
-    g_p = bc.blend_bwd_plain(pd, start, count, gx, W, H, channels, raw, ct)
-    torch.cuda.synchronize()
+    g_k = bc.blend_bwd_cuda(pd, start, count, gx, W, H, channels, raw, ct, split)
+    g_p, plain_ms = timed_call(torch, lambda: bc.blend_bwd_plain(pd, start, count, gx, W, H, channels, raw, ct))
     worst = 0.0
     max_abs = float((g_k - g_p).abs().max())
     for row in range(6 + channels):
@@ -133,7 +153,7 @@ def check_backward(torch, bc, inputs, channels, raw, label):
         fail("backward kernel produced non-finite gradients")
     log("bwd", f"{label} c{channels}: max |d grad| / |grad|_inf = {worst:.3e}, max |d grad| = {max_abs:.3e} "
                f"(rtol 1e-3, atol 1e-3 |g|_inf)")
-    return max_abs
+    return max_abs, plain_ms
 
 
 def walk_counts(torch, bc, inputs, raw):
@@ -201,6 +221,21 @@ def cuda_ms(torch, fn, iters, warmup=2):
     return a.elapsed_time(b) / iters
 
 
+def device_kernels(torch, fn):
+    """Names of the CUDA kernels built from csrc/ (blend_*) that one call of
+    `fn` launches, from the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = (re.search(r"blend_\w+", e.name) for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return [m.group(0) for m in names if m]
+
+
 def bound(bytes_moved, flops):
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
@@ -249,15 +284,18 @@ def main() -> int:
         demand.append((pd.shape[1], int((count > 0).sum())))
     d_pairs, d_active = max(p for p, _ in demand), max(a for _, a in demand)
     log("demand", f"full width at init, (pairs, active tiles) per camera {demand}; max {d_pairs} pairs, "
-                  f"{d_active} active tiles (the JAX package's record, BENCH_r05.json: 975847, 815)")
-    if abs(d_pairs - JAX_DEMAND_PAIRS) > 0.01 * JAX_DEMAND_PAIRS or abs(d_active - JAX_DEMAND_ACTIVE) > 8:
-        fail("the full-width binning is far from the JAX package's pair demand")
+                  f"{d_active} active tiles (the JAX package on the CPU: {JAX_DEMAND_PAIRS}, {JAX_DEMAND_ACTIVE})")
+    if (d_pairs, d_active) != (JAX_DEMAND_PAIRS, JAX_DEMAND_ACTIVE):
+        fail("the full-width binning differs from the JAX package's pair demand")
     full = render_inputs(params, config, index_camera(data.cameras, 0))
-    for channels in (3, 4):
-        for label, scene, top in (("256x256/20k", small, None), ("full-width top-64 tiles", full, 64)):
-            inputs = blend_inputs(*scene, channels, top_tiles=top)
-            raw = check_forward(torch, bc, inputs, channels, label)[0]
-            check_backward(torch, bc, inputs, channels, raw, label)
+    means, cov, opac, feats, cam0 = full
+    full_high = (means, cov, torch.full_like(opac, HIGH_OPACITY), feats, cam0)
+    checks = [(c, label, scene) for c in (3, 4) for label, scene in (("256x256/20k", small),
+                                                                    ("full-width top-64 tiles", full))]
+    for channels, label, scene in checks + [(4, f"full-width top-64 tiles, opacities {HIGH_OPACITY}", full_high)]:
+        inputs = blend_inputs(*scene, channels, top_tiles=None if scene is small else 64)
+        raw, split = check_forward(torch, bc, inputs, channels, label)[:2]
+        check_backward(torch, bc, inputs, channels, raw, split, label)
 
     # 5 the slice
     p_s, c_s, d_s, _, rc_s = synthetic_frame(device="cuda")
@@ -318,15 +356,27 @@ def main() -> int:
     log("slice", f"compute_losses_multi B=4 step: loss {float(loss_b):.5f}, launches {dict(bc.LAUNCHES)}")
 
     # 6 kernel times at full width (camera 0, the fused 4-channel blend)
+    def timed(x):
+        """(fwd ms, bwd ms, raw, ct, split) of the wrappers on blend inputs x,
+        the backward as the main path calls it: with the forward's test bits."""
+        raw, split = bc.blend_fwd_split(*x, 4)
+        ct = torch.randn(raw.shape, generator=torch.Generator(device="cuda").manual_seed(11), device="cuda")
+        return (cuda_ms(torch, lambda: bc.blend_fwd_cuda(*x, 4), iters=50),
+                cuda_ms(torch, lambda: bc.blend_bwd_cuda(*x, 4, raw, ct, split), iters=50), raw, ct, split)
+
     inputs = blend_inputs(*full, 4)
     pd, start, count, gx, W, H = inputs
-    raw = bc.blend_fwd_cuda(*inputs, 4)
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    ct = torch.randn(raw.shape, generator=gen, device="cuda")
-    fwd_ms = cuda_ms(torch, lambda: bc.blend_fwd_cuda(*inputs, 4), iters=50)
-    bwd_ms = cuda_ms(torch, lambda: bc.blend_bwd_cuda(*inputs, 4, raw, ct), iters=50)
-    fwd_plain_ms = cuda_ms(torch, lambda: bc.blend_fwd_plain(*inputs, 4), iters=1, warmup=1)
-    bwd_plain_ms = cuda_ms(torch, lambda: bc.blend_bwd_plain(*inputs, 4, raw, ct), iters=1, warmup=1)
+    fwd_ms, bwd_ms, raw, ct, split = timed(inputs)
+    fwd_long_ms, bwd_long_ms = timed(blend_inputs(*full, 4, top_tiles=1))[:2]
+    high = blend_inputs(*full_high, 4)
+    fwd_high_ms, bwd_high_ms = timed(high)[:2]
+    fwd_kernels = device_kernels(torch, lambda: bc.blend_fwd_cuda(*inputs, 4))
+    bwd_kernels = device_kernels(torch, lambda: bc.blend_bwd_cuda(*inputs, 4, raw, ct, split))
+    plan = split[0]
+    # The plain versions' times: their one call in the all-tile checks (seconds
+    # at this size; their kernels are warm from phases 3-4).
+    _, split, fwd_err, fwd_plain_ms = check_forward(torch, bc, inputs, 4, "full-width all tiles")
+    bwd_err, bwd_plain_ms = check_backward(torch, bc, inputs, 4, raw, split, "full-width all tiles")
 
     n_tiles, n_pairs = start.shape[0], pd.shape[1]
     walk = walk_counts(torch, bc, inputs, raw)
@@ -335,16 +385,23 @@ def main() -> int:
         {"name": "blend_fwd", "route": "cuda", "source": "gaustar_tpu_torch/csrc/blend_fwd.cu",
          "replaces": "gaustar_tpu/ops/blend_pallas.py:256", "launches": launches["blend_fwd"],
          "launches_per_step": launches["blend_fwd"] / ITERS,
-         "max_abs_err": check_forward(torch, bc, inputs, 4, "full-width all tiles")[1],
+         "max_abs_err": fwd_err,
          "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
-         "library_ms": None},
+         "library_ms": None, "device_kernels": len(fwd_kernels),
+         "scratch_bytes": plan.ends.nbytes + plan.bits_bytes(), "ms_high_opacity": fwd_high_ms,
+         "longest_tile_ms": fwd_long_ms},
         {"name": "blend_bwd", "route": "cuda", "source": "gaustar_tpu_torch/csrc/blend_bwd.cu",
          "replaces": "gaustar_tpu/ops/blend_pallas.py:504", "launches": launches["blend_bwd"],
          "launches_per_step": launches["blend_bwd"] / ITERS,
-         "max_abs_err": check_backward(torch, bc, inputs, 4, raw, "full-width all tiles"),
+         "max_abs_err": bwd_err,
          "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
-         "library_ms": None},
+         "library_ms": None, "device_kernels": len(bwd_kernels), "scratch_bytes": plan.state_bytes(4),
+         "ms_high_opacity": bwd_high_ms, "longest_tile_ms": bwd_long_ms},
     ]
+    log("kernels", f"CUDA kernels per call: blend_fwd {fwd_kernels}; blend_bwd {bwd_kernels}; "
+                   f"scratch: test bits {plan.bits_bytes()} B "
+                   f"(made by the forward, read by the backward), states {plan.state_bytes(4)} B; opacities "
+                   f"{HIGH_OPACITY}: pairs {high[0].shape[1]}, longest tile list {int(high[2].max())}")
     log("kernels", f"full width cam 0: pairs {n_pairs}, active tiles {walk['active']} of {n_tiles}, "
                    f"longest tile list {int(count.max())}, median active {int(count[count > 0].median())}; "
                    f"evaluations fwd {walk['fwd_evals']} bwd {walk['bwd_evals']}, included {walk['included']}; "

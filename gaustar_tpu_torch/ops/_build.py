@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` has a plain C interface and compiles with nvcc alone
 (no PyTorch headers: seconds, not minutes) into
 `build/kernels/lib<name>-<hash>.so` at the repo root, keyed by the hash of
-the source and the flags, so an edited source is rebuilt. `build()` starts one
+the source, the headers of `csrc/` and the flags, so an edited source or
+header is rebuilt. `build()` starts one
 nvcc per source, all at once.
 
 `-fmad=false`: the blend's discrete decisions (power <= 0, alpha >= 1/255,
@@ -41,7 +42,7 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

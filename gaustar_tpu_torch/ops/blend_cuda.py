@@ -24,7 +24,8 @@ gradient reaches the gaussians.
 `blend_raw` is the autograd.Function boundary, the same as the JAX custom VJP:
 differentiable in pair_data only. On CUDA tensors it launches the kernels
 (csrc/blend_fwd.cu, csrc/blend_bwd.cu) and never falls back; on CPU tensors
-it runs the plain versions, which is how the CPU tests run.
+it runs the plain versions, which is how the CPU tests run. On the card the
+forward's test bits are kept for the backward, which runs no test of its own.
 
 The plain versions walk the pair positions in a Python loop, vectorized over
 tiles and pixels. Each step rounds exactly as the kernel's per-pixel loop does
@@ -36,6 +37,7 @@ taken in another order. Memory is O(tiles x 256) whatever the pair count.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -194,13 +196,55 @@ def blend_bwd_plain(pair_data, tile_start, tile_count, grid_x, width, height, ch
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels (csrc/blend_fwd.cu, csrc/blend_bwd.cu)
+# CUDA kernels (csrc/blend_fwd.cu, csrc/blend_bwd.cu, csrc/blend_common.cuh)
 # ---------------------------------------------------------------------------
+
+SEG = 256  # pairs per work item: blend::SEG in csrc/blend_common.cuh
+WORD = 32  # pairs per word of test bits
+
+
+class SplitPlan(NamedTuple):
+    """The kernels' work list: each tile's pair list cut into segments of
+    `seg` pairs, one work item per (tile, segment).
+
+    ends [3, T] int32: over the tiles, the inclusive cumsums of each tile's
+    segments, test-bit words (WORD pairs each) and recorded backward states
+    (segments - 1). The other fields bound the totals from the pair count
+    alone, so that grids and scratch are sized with no host sync: a tile of
+    c > 0 pairs has at most c / seg + 1 segments and c / WORD + 1 words, and
+    floor((c - 1) / seg) states."""
+
+    ends: torch.Tensor
+    items: int
+    words: int
+    states: int
+
+    def bits_bytes(self) -> int:
+        return 4 * PIX * self.words
+
+    def state_bytes(self, channels: int) -> int:
+        return 4 * PIX * (2 + 2 * channels) * self.states
+
+
+def split_plan(tile_count, num_pairs: int, seg: int = SEG) -> SplitPlan:
+    """The work list of tile lists whose counts sum to at most num_pairs. The
+    kernels are built for segments of SEG pairs; another `seg` only describes
+    a work list, as the CPU tests' emulation of the split uses one."""
+    count = tile_count.to(torch.int32)
+    nseg = (count + (seg - 1)) // seg
+    per_tile = torch.stack([nseg, (count + (WORD - 1)) // WORD, torch.clamp(nseg - 1, min=0)])
+    spare = min(count.shape[0], num_pairs)
+    return SplitPlan(torch.cumsum(per_tile, 1, dtype=torch.int32), num_pairs // seg + spare,
+                     num_pairs // WORD + spare, num_pairs // seg)
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_FWD_ARGS = [_P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I, _P, _P]
-_BWD_ARGS = [_P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]
+_L = ctypes.c_longlong
+# pair_data, stride, tile_start, tile_count, ends, n_tiles, n_items, seg, grid_x
+_COMMON_ARGS = [_P, _L, _P, _P, _P, _I, _I, _I, _I]
+_FWD_ARGS = _COMMON_ARGS + [_I, _I, _I, _P, _P, _P]  # width, height, channels, bits, out, stream
+_BWD_ARGS = _COMMON_ARGS + [_I, _P, _P, _P, _P, _P, _P]  # channels, fwd, dout, bits, states, grads, stream
 
 
 def _check_cuda(pair_data, tile_start, tile_count, channels, *states):
@@ -224,33 +268,49 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
 
 
-def blend_fwd_cuda(pair_data, tile_start, tile_count, grid_x, width, height, channels):
-    """Launch csrc/blend_fwd.cu: one 256-thread block per tile -> raw state."""
+def _common_args(pair_data, tile_start, tile_count, plan, grid_x):
+    return (pair_data.data_ptr(), pair_data.stride(0), tile_start.data_ptr(), tile_count.data_ptr(),
+            plan.ends.data_ptr(), tile_start.shape[0], plan.items, SEG, grid_x)
+
+
+def blend_fwd_split(pair_data, tile_start, tile_count, grid_x, width, height, channels):
+    """Launch csrc/blend_fwd.cu -> (raw state, split): the test of every
+    (pixel, pair), one block per (tile, segment), then each tile's pixels
+    composite their set bits. `split` is (plan, test bits), which the
+    backward of the same inputs reads (blend_bwd_cuda)."""
     _check_cuda(pair_data, tile_start, tile_count, channels)
     lib = _build.load("blend_fwd", _FWD_ARGS)
-    n_tiles = tile_start.shape[0]
-    out = torch.empty((n_tiles, STATE_ROWS, PIX), dtype=torch.float32, device=pair_data.device)
-    err = lib.blend_fwd(
-        pair_data.data_ptr(), pair_data.stride(0), tile_start.data_ptr(), tile_count.data_ptr(),
-        n_tiles, grid_x, width, height, channels, out.data_ptr(),
-        torch.cuda.current_stream(pair_data.device).cuda_stream,
-    )
+    plan = split_plan(tile_count, pair_data.shape[1])
+    dev = pair_data.device
+    bits = torch.empty((plan.words, PIX), dtype=torch.int32, device=dev)
+    out = torch.empty((tile_start.shape[0], STATE_ROWS, PIX), dtype=torch.float32, device=dev)
+    err = lib.blend_fwd(*_common_args(pair_data, tile_start, tile_count, plan, grid_x), width, height, channels,
+                        bits.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "blend_fwd")
     LAUNCHES["blend_fwd"] += 1
-    return out
+    return out, (plan, bits)
 
 
-def blend_bwd_cuda(pair_data, tile_start, tile_count, grid_x, width, height, channels, fwd, dout):
-    """Launch csrc/blend_bwd.cu: one block per tile, back to front -> [F, P]."""
+def blend_fwd_cuda(pair_data, tile_start, tile_count, grid_x, width, height, channels):
+    """blend_fwd_split's raw state alone."""
+    return blend_fwd_split(pair_data, tile_start, tile_count, grid_x, width, height, channels)[0]
+
+
+def blend_bwd_cuda(pair_data, tile_start, tile_count, grid_x, width, height, channels, fwd, dout, split):
+    """Launch csrc/blend_bwd.cu: each tile's chain states at its segment
+    boundaries, then one block per (tile, segment) -> [F, P]. `split` is
+    blend_fwd_split's of the same inputs. The arguments are blend_bwd_plain's
+    and `split`; the image's width and height are not read, since the
+    forward's bits and n_contrib already leave out pixels outside it."""
     _check_cuda(pair_data, tile_start, tile_count, channels, fwd, dout)
     lib = _build.load("blend_bwd", _BWD_ARGS)
-    n_tiles = tile_start.shape[0]
+    dev = pair_data.device
+    plan, bits = split
+    states = torch.empty((max(plan.states, 1), 2 + 2 * channels, PIX), dtype=torch.float32, device=dev)
     grads = torch.zeros_like(pair_data)
-    err = lib.blend_bwd(
-        pair_data.data_ptr(), pair_data.stride(0), tile_start.data_ptr(), tile_count.data_ptr(),
-        n_tiles, grid_x, width, height, channels, fwd.data_ptr(), dout.data_ptr(),
-        grads.data_ptr(), torch.cuda.current_stream(pair_data.device).cuda_stream,
-    )
+    err = lib.blend_bwd(*_common_args(pair_data, tile_start, tile_count, plan, grid_x), channels,
+                        fwd.data_ptr(), dout.data_ptr(), bits.data_ptr(), states.data_ptr(),
+                        grads.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "blend_bwd")
     LAUNCHES["blend_bwd"] += 1
     return grads
@@ -263,8 +323,9 @@ class BlendRaw(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pair_data, tile_start, tile_count, grid_x, width, height, channels):
+        ctx.split = None
         if pair_data.is_cuda:
-            raw = blend_fwd_cuda(pair_data, tile_start, tile_count, grid_x, width, height, channels)
+            raw, ctx.split = blend_fwd_split(pair_data, tile_start, tile_count, grid_x, width, height, channels)
         else:
             raw = blend_fwd_plain(pair_data, tile_start, tile_count, grid_x, width, height, channels)
         ctx.save_for_backward(pair_data, tile_start, tile_count, raw)
@@ -276,7 +337,7 @@ class BlendRaw(torch.autograd.Function):
         pair_data, tile_start, tile_count, raw = ctx.saved_tensors
         args = (pair_data, tile_start, tile_count, *ctx.meta, raw, ct.contiguous())
         if pair_data.is_cuda:
-            grads = blend_bwd_cuda(*args)
+            grads = blend_bwd_cuda(*args, split=ctx.split)
         else:
             grads = blend_bwd_plain(*args)
         return grads, None, None, None, None, None, None

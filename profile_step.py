@@ -2,6 +2,7 @@
 """Where the time of the refine step goes on one NVIDIA GPU (gaustar_tpu_torch).
 
     python3 profile_step.py        # needs one CUDA card
+    python3 profile_step.py blend  # section 4 alone
 
 On `reference_scene` (600k gaussians, 1600x1024, 4 cameras) it prints the
 card's name and power limit, then:
@@ -13,8 +14,9 @@ card's name and power limit, then:
   3 layers   the forward and backward of each layer of one iteration on its
              own (camera 0, the fused 4-channel render): its time between
              CUDA events and its device-busy time under the profiler;
-  4 blend    the two kernels' times over every tile of camera 0 and over its
-             longest tile alone.
+  4 blend    the two blend wrappers' times over every tile of camera 0 and
+             over its longest tile alone, at the initial opacities and at
+             0.9, with the device time of each CUDA kernel they launch.
 """
 
 from __future__ import annotations
@@ -127,22 +129,57 @@ def layer_ms(torch, params, config, data, cfg):
     }
 
 
+def device_kernel_ms(torch, fn, iters=10):
+    """{CUDA kernel name: device ms per call of `fn`} under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / iters
+    return out
+
+
 def blend_tile_ms(torch, params, config, data):
-    """{label: (tile list length, fwd kernel ms, bwd kernel ms)} of the blend
-    kernels over every tile of camera 0 and over its longest tile alone."""
+    """{(opacity state, tiles): (pairs, longest list, fwd ms, bwd ms, fwd
+    kernels, bwd kernels)} of the blend wrappers on camera 0, 4 channels:
+    at the scene's initial opacities and with every opacity set to 0.9 (the
+    tile lists re-binned, as a render of trained gaussians bins them), over
+    every tile and over the longest tile alone. The last two entries are the
+    device ms of each CUDA kernel a wrapper launches."""
     from gaustar_tpu_torch.cameras import index_camera
     from gaustar_tpu_torch.ops import blend_cuda as bc
     from gaustar_tpu_torch.utils.synthetic import blend_inputs, render_inputs
 
-    scene = render_inputs(params, config, index_camera(data.cameras, 0))
+    means, cov, opac, feats, cam = render_inputs(params, config, index_camera(data.cameras, 0))
     out = {}
-    for label, top in (("all tiles", None), ("longest tile alone", 1)):
-        inputs = blend_inputs(*scene, 4, top_tiles=top)
-        raw = bc.blend_fwd_cuda(*inputs, 4)
-        ct = torch.randn(raw.shape, device=raw.device)
-        out[label] = (int(inputs[2].max()), cuda_ms(torch, lambda: bc.blend_fwd_cuda(*inputs, 4), 20),
-                      cuda_ms(torch, lambda: bc.blend_bwd_cuda(*inputs, 4, raw, ct), 20))
+    for state, op in (("initial opacities", opac), ("opacities 0.9", torch.full_like(opac, 0.9))):
+        for label, top in (("all tiles", None), ("longest tile alone", 1)):
+            inputs = blend_inputs(means, cov, op, feats, cam, 4, top_tiles=top)
+            raw, split = bc.blend_fwd_split(*inputs, 4)
+            ct = torch.randn(raw.shape, device=raw.device)
+            fwd = lambda: bc.blend_fwd_cuda(*inputs, 4)  # noqa: E731
+            bwd = lambda: bc.blend_bwd_cuda(*inputs, 4, raw, ct, split)  # noqa: E731
+            out[(state, label)] = (inputs[0].shape[1], int(inputs[2].max()), cuda_ms(torch, fwd, 20),
+                                   cuda_ms(torch, bwd, 20), device_kernel_ms(torch, fwd),
+                                   device_kernel_ms(torch, bwd))
     return out
+
+
+def print_blend(torch, params, config, data):
+    for (state, label), (pairs, longest, fwd, bwd, kf, kb) in blend_tile_ms(torch, params, config, data).items():
+        print(f"[blend] {state}, {label}: {pairs} pairs, longest list {longest}; blend_fwd {fwd:.4f} ms, "
+              f"blend_bwd {bwd:.4f} ms", flush=True)
+        for wrapper, kernels in (("blend_fwd", kf), ("blend_bwd", kb)):
+            print(f"[blend]   {wrapper} device ms by kernel: "
+                  + ", ".join(f"{name} {ms:.4f}" for name, ms in kernels.items()), flush=True)
 
 
 def main() -> int:
@@ -159,6 +196,9 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0], flush=True)
     params, config, data, raster_cfg = reference_scene("cuda")
+    if sys.argv[1:] == ["blend"]:
+        print_blend(torch, params, config, data)
+        return 0
 
     def run(iters):
         cfg = refine.RefineConfig(num_iterations=iters, loose_bind_from=10**9, do_sh_warmup=False)
@@ -191,9 +231,7 @@ def main() -> int:
     dev = sum(d for _, d in layers.values())
     print(f"[layers] wall {wall:8.3f} ms  device {dev:8.3f} ms ({100 * dev / step_ms:5.1f}%)  sum, of a "
           f"{step_ms:.3f} ms iteration", flush=True)
-    for label, (longest, fwd, bwd) in blend_tile_ms(torch, params, config, data).items():
-        print(f"[blend] {label}: longest list {longest} pairs; blend_fwd {fwd:.4f} ms, blend_bwd {bwd:.4f} ms",
-              flush=True)
+    print_blend(torch, params, config, data)
     return 0
 
 

@@ -54,7 +54,7 @@ def _blend_inputs(device, channels, n=3000, size=64, seed=3):
 @pytest.mark.parametrize("channels", [3, 4])
 def test_kernels_match_plain_versions(cuda, channels):
     args = (*_blend_inputs(cuda, channels), channels)
-    raw_k = bc.blend_fwd_cuda(*args)
+    raw_k, split = bc.blend_fwd_split(*args)
     raw_p = bc.blend_fwd_plain(*args)
     assert (raw_p[:, 4] > 0).any() and (raw_p[:, 5] > 0).any()
     # -fmad=false: the kernel rounds each step as the plain version does, so
@@ -66,9 +66,69 @@ def test_kernels_match_plain_versions(cuda, channels):
     ct = torch.zeros_like(raw_p)
     for row in (0, 1, 2, 3, 6):
         ct[:, row] = torch.randn(ct[:, row].shape, generator=gen, device=cuda)
-    g_k = bc.blend_bwd_cuda(*args, raw_p, ct)
+    g_k = bc.blend_bwd_cuda(*args, raw_p, ct, split)
     g_p = bc.blend_bwd_plain(*args, raw_p, ct)
     # per-slot sums over 256 pixels, taken in another order (warp shuffles)
+    for row in range(6 + channels):
+        atol = 1e-3 * float(g_p[row].abs().max())
+        torch.testing.assert_close(g_k[row], g_p[row], rtol=1e-3, atol=atol)
+
+
+S = bc.SEG
+# Tile lists of the split cases, a 4 x 2 tile grid whose bottom row is cut
+# by the image's lower edge (pixels outside): one list of many segments,
+# lengths S - 1, S and S + 1, two empty tiles, and two lists with an opaque
+# stopper at the last pair of segment 0 and at the first pair of segment 1.
+SPLIT_COUNTS = [4000, S - 1, S, S + 1, 0, 2 * S + 10, 2 * S + 10, 0]
+STOP_AT = {5: S - 1, 6: S}  # tile -> list index of the stopper
+OPACITY = {0: (0.002, 0.012), 5: (0.01, 0.05), 6: (0.01, 0.05)}  # faint: long walks, T high at the stoppers
+SPLIT_W, SPLIT_H = 64, 27
+
+
+def _split_case(device, channels, seed=0):
+    """(pair_data, tile_start, tile_count, grid_x, W, H) of hand-made tile
+    lists: random gaussians around each tile; before each stopper two
+    broad primers of opacity 0.9 bring T to about 1% so that a broad pair of
+    opacity 0.995 stops most pixels at its list index."""
+    rng = np.random.default_rng(seed)
+    grid_x = SPLIT_W // 16
+    fields = []
+    for t, n in enumerate(SPLIT_COUNTS):
+        ox, oy = 16 * (t % grid_x), 16 * (t // grid_x)
+        sx, sy = rng.uniform(1.5, 8, n), rng.uniform(1.5, 8, n)
+        a, c = 1 / sx**2, 1 / sy**2
+        f = np.stack([ox + rng.uniform(-4, 20, n), oy + rng.uniform(-4, 20, n), a,
+                      rng.uniform(-0.5, 0.5, n) * np.sqrt(a * c), c,
+                      rng.uniform(*OPACITY.get(t, (0.01, 0.3)), n)]
+                     + [rng.uniform(size=n) for _ in range(channels)])
+        if t in STOP_AT:
+            k = STOP_AT[t]
+            f[:, k - 2:k + 1] = np.array([[ox + 7.5, oy + 7.5, 1e-4, 0.0, 1e-4, op] + [0.5] * channels
+                                          for op in (0.9, 0.9, 0.995)]).T
+        fields.append(f)
+    pd = torch.as_tensor(np.concatenate(fields, 1).astype(np.float32), device=device).contiguous()
+    count = torch.tensor(SPLIT_COUNTS, dtype=torch.int32, device=device)
+    start = (torch.cumsum(count, 0) - count).to(torch.int32)
+    return pd, start, count, grid_x, SPLIT_W, SPLIT_H
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+def test_split_kernels_on_segment_edges(cuda, channels):
+    args = (*_split_case(cuda, channels), channels)
+    raw_p = bc.blend_fwd_plain(*args)
+    for t, k in STOP_AT.items():  # the case stops pixels where it means to
+        assert int(((raw_p[t, 5] == 1) & (raw_p[t, 4] == k)).sum()) > 0
+    assert int(raw_p[0, 4].max()) > 8 * S and (raw_p[4:, 5] == 1).any()
+    raw_k, split = bc.blend_fwd_split(*args)
+    # The chain repeats the plain walk's operations on each composited pair.
+    assert torch.equal(raw_k[:, :7], raw_p[:, :7])
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    ct = torch.zeros_like(raw_p)
+    for row in (0, 1, 2, 3, 6):
+        ct[:, row] = torch.randn(ct[:, row].shape, generator=gen, device=cuda)
+    g_p = bc.blend_bwd_plain(*args, raw_p, ct)
+    g_k = bc.blend_bwd_cuda(*args, raw_p, ct, split)
     for row in range(6 + channels):
         atol = 1e-3 * float(g_p[row].abs().max())
         torch.testing.assert_close(g_k[row], g_p[row], rtol=1e-3, atol=atol)
