@@ -26,7 +26,19 @@ Phases, one line of output each (or a few):
   6 kernels  each kernel's time (CUDA events) at full width, at the initial
              opacities and at 0.9 and on the longest tile alone, the CUDA
              kernels it launches and its scratch bytes, its plain version's
-             time and its bound, printed as one JSON line.
+             time and its bound, printed as one JSON line;
+  7 topo     the topology event on utils/synthetic.topology_scene (the
+             600k-gaussian sphere, 8 ring cameras at 1600x1024, a blob in the
+             GT): first the forward kernel under no_grad against
+             blend_fwd_plain on the 64 busiest tiles of a solid-surface
+             detection view and of a fusion view; then refine_one_frame for
+             TOPO_ITERS iterations (detection and loose bind at half) and
+             update_frame_topology (fusion from 60 orbit views + the rig,
+             detection, surgery, recolour, re-refine for TOPO_ITERS / 2). It
+             fails unless the model loose-bound, the surgery grafted at least
+             one component, the tracked faces stay on the sphere, the graft
+             reaches toward the blob, every loss is finite and each kernel
+             launched exactly as often as the event implies.
 The last line is the JSON result {"ok": true, "device": {...}}. Any failed
 phase raises, and the script exits non-zero without that line.
 """
@@ -52,6 +64,16 @@ WARMUP_STEPS = 3
 JAX_DEMAND_PAIRS = 975_378
 JAX_DEMAND_ACTIVE = 808
 HIGH_OPACITY = 0.9  # the kind of value trained gaussians reach
+# The topology event (phase 7): refine iterations (detection at half), the
+# position / delta learning-rate scale, boosted as the JAX package's
+# end-to-end test boosts it so that unbound gaussians reach the blob in a
+# short budget, and the limits of the result's checks.
+TOPO_ITERS = 400
+TOPO_LR_SCALE = 3.0
+TOPO_BOUNDARY_PAD = 0.12
+TOPO_SOLID_OPACITY = 0.995
+TOPO_MIN_PROTRUSION = 0.62  # m along the blob direction (sphere radius 0.6)
+TOPO_MAX_TRACKED_DEV = 0.1  # m, median |r - 0.6| of the tracked faces' vertices
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -113,11 +135,16 @@ def timed_call(torch, fn):
     return out, a.elapsed_time(b)
 
 
-def check_forward(torch, bc, inputs, channels, label):
+def check_forward(torch, bc, inputs, channels, label, fwd_only=False):
     """(plain raw state, the kernel's split for the backward, max |error| of
-    colour and T, the plain call's ms)."""
+    colour and T, the plain call's ms). `fwd_only`: the kernel runs as a
+    forward-only render calls it, blend_raw under no_grad (split None)."""
     pd, start, count, gx, W, H = inputs
-    raw_k, split = bc.blend_fwd_split(pd, start, count, gx, W, H, channels)
+    if fwd_only:
+        with torch.no_grad():
+            raw_k, split = bc.blend_raw(pd, start, count, gx, W, H, channels), None
+    else:
+        raw_k, split = bc.blend_fwd_split(pd, start, count, gx, W, H, channels)
     raw_p, plain_ms = timed_call(torch, lambda: bc.blend_fwd_plain(pd, start, count, gx, W, H, channels))
     rows = [0, 1, 2, 3, 6]
     err = float((raw_k[:, rows] - raw_p[:, rows]).abs().max())
@@ -242,37 +269,153 @@ def bound(bytes_moved, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def main() -> int:
-    import torch
+def solid_view_inputs(torch, params, config, camera, solid_opacity):
+    """(means, cov3d, opacities, features [N, 3], camera) of a detection
+    render's solid-surface depth pass: every opacity at `solid_opacity`,
+    small in-plane scales raised to their mean, view depth as the colour."""
+    from gaustar_tpu_torch.models import sugar
+    from gaustar_tpu_torch.train.topo_detect import detection_params
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
-        return 1
+    with torch.no_grad():
+        p = detection_params(params, solid_opacity)
+        pos, cov = sugar.geom_primitives(p, config, use_solid_surface=True)
+        z = pos @ camera.view[2, :3] + camera.view[2, 3]
+        return pos, cov, sugar.strengths(p), z[:, None].expand(-1, 3).contiguous(), camera
+
+
+def topo_phase(torch, bc):
+    """Phase 7: the topology event at full width. Returns {kernel: launches}
+    of the event and the forward-only check's max |error|."""
+    from gaustar_tpu_torch.cameras import index_camera, stack_cameras
+    from gaustar_tpu_torch.models import sugar
+    from gaustar_tpu_torch.train import mesh_update, sequence, topo_detect
+    from gaustar_tpu_torch.train.topo_detect import detection_params
+    from gaustar_tpu_torch.utils.synthetic import (
+        TOPO_BLOB_CENTER, TOPO_SPHERE_CENTER, TOPO_SPHERE_RADIUS, blend_inputs, render_inputs, topology_scene)
+
+    t0 = time.perf_counter()
+    sc = topology_scene("cuda")
+    cams, rcfg = sc["cams"], sc["raster_cfg"]
+    n_cams = len(cams)
+    height, width = sc["gt_depths"].shape[1:]
+    log("topo", f"topology_scene: {len(sc['faces'])} faces, {6 * len(sc['faces'])} gaussians, {n_cams} cameras "
+                f"{width}x{height}; GT rendered in {time.perf_counter() - t0:.1f} s")
+
+    # The forward kernel as detection and fusion call it (no_grad), against
+    # its plain version on the 64 busiest tiles.
+    params, config = sugar.init_sugar(sc["verts"], sc["faces"], vertex_colors=sc["colors"], device="cuda")
+    with torch.no_grad():
+        pts = sugar.gaussian_centers(params, config).cpu().numpy()
+    orbit0 = index_camera(mesh_update.fusion_cameras(pts, stack_cameras(cams)), 0)
+    fwd_err = 0.0
+    for label, scene, channels in (
+            ("detection view (solid surface)", solid_view_inputs(torch, params, config, cams[0], TOPO_SOLID_OPACITY), 3),
+            ("fusion view (orbit 0)", render_inputs(detection_params(params, TOPO_SOLID_OPACITY), config, orbit0), 4)):
+        inputs = blend_inputs(*scene, channels, top_tiles=64)
+        fwd_err = max(fwd_err, check_forward(torch, bc, inputs, channels, f"forward only, {label}, top-64 tiles",
+                                             fwd_only=True)[2])
+    del params, config
+
+    iters = TOPO_ITERS
+    seq = sequence.SequenceConfig(
+        refinement_iterations=iters, force_watertight=False, boundary_pad=TOPO_BOUNDARY_PAD,
+        fusion_solid_opacity=TOPO_SOLID_OPACITY, spatial_lr_scale=TOPO_LR_SCALE)
+    dcfg = topo_detect.TopoDetectConfig(min_observe=3, detect_floor=False)
+    log("topo", f"settings: {iters} iterations (detection at {iters // 2}), re-refine {iters // 2}; "
+                f"spatial_lr_scale {seq.spatial_lr_scale}; boundary_pad {seq.boundary_pad}; force_watertight "
+                f"{seq.force_watertight}; fusion voxel {seq.fusion_voxel_size} trunc {seq.fusion_sdf_trunc} "
+                f"solid opacity {seq.fusion_solid_opacity}; unbind_threshold {seq.unbind_threshold}; "
+                f"cc_face_threshold {seq.update_cc_face_threshold}; detection {dcfg}")
+
+    stamps = {"refine": [], "re_refine": []}
+    stage = ["refine"]
+    events = []
+
+    def on_log(entry):
+        if not all(np.isfinite(float(v)) for v in entry.values()):
+            fail(f"non-finite value in the {stage[0]} log: {entry}")
+        if "loss" in entry:
+            torch.cuda.synchronize()
+            stamps[stage[0]].append(time.perf_counter())
+        else:
+            events.append(entry)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bc.reset_launch_counts()
+    t0 = time.perf_counter()
+    p, c, d, topo, _ = sequence.refine_one_frame(
+        seq, 1, sc["verts"], sc["faces"], sc["colors"], cams, sc["gt_images"], sc["gt_depths"], rcfg,
+        is_first_frame=False, detect_cfg=dcfg, log_fn=on_log, log_every=1, device="cuda")
+    torch.cuda.synchronize()
+    t_refine = time.perf_counter() - t0
+    det_mid = topo_detect.last_telemetry
+    stage[0] = "re_refine"
+    p, c, d, topo, ev = sequence.update_frame_topology(
+        seq, 1, p, c, d, topo, cams, sc["gt_images"], sc["gt_depths"], rcfg, detect_cfg=dcfg,
+        log_fn=on_log, log_every=1)
+    torch.cuda.synchronize()
+    launches = dict(bc.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    det_post = topo_detect.last_telemetry
+    fus = mesh_update.last_fusion
+
+    unbind = [e for e in events if "unbind_changed" in e]
+    for name, t in (("mid-refine", det_mid), ("after refine", det_post)):
+        if t is not None:
+            log("topo", f"detection {name}: wall {1e3 * t.seconds:.1f} ms; camera loop (renders, gates, "
+                        f"stacks) {t.device_ms:.1f} ms between CUDA events; coverage_mean "
+                        f"{t.coverage_per_cam.mean():.4f} observed_fraction {t.observed_fraction:.4f} "
+                        f"flagged_faces {t.flagged_faces}")
+    log("topo", f"unbind decision: {unbind} (refine wall {t_refine:.1f} s)")
+    if not unbind or not unbind[0]["loose_bind"]:
+        fail(f"the model did not loose-bind: {unbind}")
+    log("topo", f"fusion: {fus['views']} views x {fus['blocks']} block(s) of {fus['block_dims']} voxels "
+                f"(global {fus['global_dims']}); renders + integration {fus['device_ms']:.1f} device ms; "
+                f"extraction {fus['host_ms']:.1f} host ms; fused mesh {fus['verts']} verts, {fus['faces']} faces")
+    log("topo", f"stage wall s: {ev['seconds']}")
+    if ev["cc_update_num"] < 1:
+        fail(f"the surgery grafted nothing: {ev['cc_update_num']}")
+    um, track = ev["updated_mesh"], ev["track_face_mask"]
+    n_tracked = int(track.sum())
+    center = np.asarray(TOPO_SPHERE_CENTER)
+    blob_dir = np.asarray(TOPO_BLOB_CENTER) - center
+    blob_dir /= np.linalg.norm(blob_dir)
+    protrusion = float(((um.verts - center) @ blob_dir).max())
+    tv = um.verts[um.faces[:n_tracked].reshape(-1)]
+    tracked_dev = float(np.median(np.abs(np.linalg.norm(tv - center, axis=1) - TOPO_SPHERE_RADIUS)))
+    log("topo", f"surgery: {1e3 * ev['seconds']['surgery']:.1f} host ms; cc_update_num {ev['cc_update_num']}; "
+                f"aabb_pad {ev['aabb_pad']}; tracked faces {n_tracked} of {len(track)}, new faces "
+                f"{len(um.faces) - n_tracked}; max_dist_in_connection {ev['max_dist_in_connection']:.5f}; "
+                f"protrusion toward the blob {protrusion:.4f} m; tracked median |r - r0| {tracked_dev:.5f} m")
+    if protrusion <= TOPO_MIN_PROTRUSION:
+        fail(f"the graft does not reach toward the blob: {protrusion:.4f} <= {TOPO_MIN_PROTRUSION}")
+    if not tracked_dev < TOPO_MAX_TRACKED_DEV:
+        fail(f"the tracked prefix left the sphere: median |r - r0| {tracked_dev:.4f}")
+
+    steps = {k: [1e3 * (b - a) for a, b in zip(v[WARMUP_STEPS - 1:], v[WARMUP_STEPS:])] for k, v in stamps.items()}
+    re_iters = iters // 2
+    n_views = fus["views"] * fus["blocks"]
+    expected = {"blend_fwd": iters + re_iters + 2 * 2 * n_cams + n_views, "blend_bwd": iters + re_iters}
+    log("topo", f"median iteration ms: refine {statistics.median(steps['refine']):.2f} "
+                f"({len(stamps['refine'])} its, {len(sc['faces'])} faces), re-refine "
+                f"{statistics.median(steps['re_refine']):.2f} ({len(stamps['re_refine'])} its, {len(um.faces)} faces); "
+                f"peak mem {peak_gb:.2f} GiB; launches {launches}, expected {expected} "
+                f"(fwd = {iters} + {re_iters} iterations + 2 x 2 x {n_cams} detection renders + {n_views} fusion views)")
+    if len(stamps["refine"]) != iters or len(stamps["re_refine"]) != re_iters:
+        fail(f"iterations logged: {len(stamps['refine'])} and {len(stamps['re_refine'])}")
+    if launches != expected:
+        fail(f"the topology event launched the kernels {launches}, expected {expected}")
+    return launches, fwd_err
+
+
+def kernel_phases(torch, bc, t_start):
+    """Phases 3-6: each kernel against its plain version, the refine step at
+    full width, the kernels' times. Returns the kernels line's entries."""
     from gaustar_tpu_torch.cameras import index_camera
-    from gaustar_tpu_torch.ops import _build
-    from gaustar_tpu_torch.ops import blend_cuda as bc
     from gaustar_tpu_torch.train import refine
     from gaustar_tpu_torch.train.optimizer import OptimizationParams, adam_init, make_lr_fn
     from gaustar_tpu_torch.utils.synthetic import blend_inputs, reference_scene, render_inputs, synthetic_frame
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
-
-    # 1 card
-    kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    log("card", f"{kind}; torch {torch.__version__} cuda {torch.version.cuda}")
-    print(smi, flush=True)
-
-    # 2 build
-    t0 = time.perf_counter()
-    build_log = _build.build(["blend_fwd", "blend_bwd"])
-    for name, entry in build_log.items():
-        usage = [ln.strip() for ln in entry["log"].splitlines() if "registers" in ln or "smem" in ln]
-        log("build", f"{name}: {entry['seconds']:.1f} s; " + " | ".join(usage))
-    log("build", f"wall {time.perf_counter() - t0:.1f} s")
 
     # 3-4 kernels against their plain versions
     small = random_scene(torch, 20_000, 256, seed=3, device="cuda")
@@ -408,6 +551,46 @@ def main() -> int:
                    f"slots loaded fwd {walk['fwd_slots']} bwd {walk['bwd_slots']}; "
                    f"bounds fwd {fwd_bound[0]:.4f} ms ({fwd_bound[1]}) bwd {bwd_bound[0]:.4f} ms ({bwd_bound[1]}); "
                    f"median step {median_ms:.2f} ms; total {time.perf_counter() - t_start:.1f} s")
+    return kernels
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
+        return 1
+    from gaustar_tpu_torch.ops import _build
+    from gaustar_tpu_torch.ops import blend_cuda as bc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # 1 card
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log("card", f"{kind}; torch {torch.__version__} cuda {torch.version.cuda}")
+    print(smi, flush=True)
+
+    # 2 build
+    t0 = time.perf_counter()
+    build_log = _build.build(["blend_fwd", "blend_bwd"])
+    for name, entry in build_log.items():
+        usage = [ln.strip() for ln in entry["log"].splitlines() if "registers" in ln or "smem" in ln]
+        log("build", f"{name}: {entry['seconds']:.1f} s; " + " | ".join(usage))
+    log("build", f"wall {time.perf_counter() - t0:.1f} s")
+
+    kernels = kernel_phases(torch, bc, t_start)
+    # 7 the topology event
+    t0 = time.perf_counter()
+    topo_launches, fwd_only_err = topo_phase(torch, bc)
+    log("topo", f"phase wall {time.perf_counter() - t0:.1f} s")
+    for k in kernels:
+        k["launches_topo"] = topo_launches[k["name"]]
+    kernels[0]["max_abs_err_fwd_only"] = fwd_only_err
+    log("done", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

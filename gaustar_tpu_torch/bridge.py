@@ -7,6 +7,8 @@ objects on `device`. This module imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -80,3 +82,14 @@ def frame_data_from_numpy(arrays: dict, device="cuda") -> FrameData:
         adj_gather=adj_gather,
         **opt,
     )
+
+
+def config_from_fields(cls, fields: dict):
+    """A port config dataclass (TopoDetectConfig, SequenceConfig, ...) from
+    the fields of the JAX package's namesake (dataclasses.asdict). A field
+    the port's class lacks raises."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(fields) - names
+    if unknown:
+        raise ValueError(f"{cls.__name__} has no fields {sorted(unknown)}")
+    return cls(**fields)

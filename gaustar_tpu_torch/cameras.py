@@ -126,3 +126,44 @@ def index_camera(cams: Camera, i: int) -> Camera:
         znear=cams.znear,
         zfar=cams.zfar,
     )
+
+
+def orbit_cameras(
+    center: np.ndarray,
+    distance: float,
+    width: int,
+    height: int,
+    focal: float,
+    n_azim: int = 12,
+    elevations=(-40.0, -20.0, 0.0, 20.0, 40.0),
+    device="cuda",
+) -> list[Camera]:
+    """The TSDF fusion views of refined_mesh.py:55-81 (sample_cam): n_azim
+    azimuths at each elevation, all looking at `center` from `distance`. The
+    default five elevations give 60 cameras."""
+    cams = []
+    for elev in elevations:
+        for k in range(n_azim):
+            azim = 360.0 * k / n_azim
+            e, a = np.deg2rad(elev), np.deg2rad(azim)
+            # Camera position on the orbit sphere.
+            pos = center + distance * np.array(
+                [np.cos(e) * np.sin(a), np.sin(e), np.cos(e) * np.cos(a)]
+            )
+            # Look-at: z forward towards center, y down-ish (OpenCV).
+            z = center - pos
+            z = z / np.linalg.norm(z)
+            up = np.array([0.0, -1.0, 0.0])
+            x = np.cross(up, z)
+            if np.linalg.norm(x) < 1e-6:
+                x = np.array([1.0, 0.0, 0.0])
+            x = x / np.linalg.norm(x)
+            y = np.cross(z, x)
+            Rc2w = np.stack([x, y, z], axis=1)
+            w2c = np.eye(4)
+            w2c[:3, :3] = Rc2w.T
+            w2c[:3, 3] = -Rc2w.T @ pos
+            cams.append(
+                Camera.from_w2c(w2c, focal, focal, width / 2.0, height / 2.0, width, height, device=device)
+            )
+    return cams

@@ -28,9 +28,9 @@ def build_topology(faces: np.ndarray, n_verts: int | None = None) -> MeshTopolog
     # All half-edges with their face ids.
     he = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]], axis=0)
     fid = np.tile(np.arange(len(faces)), 3)
-    key = np.sort(he, axis=1)
     uniq, inv, counts = np.unique(
-        key[:, 0] * np.int64(n_verts) + key[:, 1], return_inverse=True, return_counts=True
+        np.minimum(he[:, 0], he[:, 1]) * np.int64(n_verts) + np.maximum(he[:, 0], he[:, 1]),
+        return_inverse=True, return_counts=True,
     )
     edges = np.stack([uniq // n_verts, uniq % n_verts], axis=1).astype(np.int32)
 
@@ -45,18 +45,19 @@ def build_topology(faces: np.ndarray, n_verts: int | None = None) -> MeshTopolog
     boundary = counts == 1
     boundary_edges = edges[boundary]
 
-    # Vertex adjacency (from unique edges), padded.
+    # Vertex adjacency (from unique edges), padded: each vertex lists its
+    # neighbours in edge order, as appending edge by edge would.
     deg = np.zeros(n_verts, np.int64)
     np.add.at(deg, edges[:, 0], 1)
     np.add.at(deg, edges[:, 1], 1)
     max_deg = int(deg.max()) if len(deg) else 0
     vert_adj = np.full((n_verts, max_deg), n_verts, np.int32)
-    cursor = np.zeros(n_verts, np.int64)
-    for a, b in edges:
-        vert_adj[a, cursor[a]] = b
-        cursor[a] += 1
-        vert_adj[b, cursor[b]] = a
-        cursor[b] += 1
+    src = edges.reshape(-1)  # edge-major: a0, b0, a1, b1, ...
+    dst = edges[:, ::-1].reshape(-1)
+    order = np.argsort(src, kind="stable")
+    row_start = np.cumsum(deg) - deg
+    slot = np.arange(len(order)) - row_start[src[order]]
+    vert_adj[src[order], slot] = dst[order]
 
     return MeshTopology(
         edges=edges,
@@ -66,3 +67,27 @@ def build_topology(faces: np.ndarray, n_verts: int | None = None) -> MeshTopolog
         vert_adj_count=deg.astype(np.int32),
     )
 
+
+def face_connected_components(faces: np.ndarray, adj_faces: np.ndarray | None = None) -> np.ndarray:
+    """Label faces by edge-connected component (union-find). Returns [F] labels."""
+    faces = np.asarray(faces)
+    if adj_faces is None:
+        adj_faces = build_topology(faces).adj_faces
+    parent = np.arange(len(faces))
+
+    def find(x):
+        root = x
+        while parent[root] != root:
+            root = parent[root]
+        while parent[x] != root:
+            parent[x], x = root, parent[x]
+        return root
+
+    for a, b in adj_faces:
+        ra, rb = find(a), find(b)
+        if ra != rb:
+            parent[rb] = ra
+    labels = np.fromiter((find(i) for i in range(len(faces))), dtype=np.int64, count=len(faces))
+    # Relabel to consecutive ids.
+    _, labels = np.unique(labels, return_inverse=True)
+    return labels

@@ -298,6 +298,12 @@ def surface_mesh(params: SuGaRParams, config: SuGaRConfig):
     return params.points, config.faces
 
 
+def loose_bound(params: SuGaRParams, config: SuGaRConfig) -> tuple[SuGaRParams, SuGaRConfig]:
+    """Enable unbinding (sugar_model.py:596-599 loose_bind): the same leaves,
+    with delta_t and delta_r now read by the geometry."""
+    return params, dataclasses.replace(config, loose_bind=True)
+
+
 def render(
     params: SuGaRParams,
     config: SuGaRConfig,

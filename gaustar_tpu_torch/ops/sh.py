@@ -159,3 +159,6 @@ def sh_to_rgb(deg: int, sh: torch.Tensor, positions: torch.Tensor, campos: torch
 def rgb_to_sh(rgb):
     return (rgb - 0.5) / C0
 
+
+def sh_to_rgb_dc(sh):
+    return sh * C0 + 0.5

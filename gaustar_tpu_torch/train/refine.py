@@ -12,9 +12,12 @@ Loss stack (refine.py:584-748):
   opacity  relu(0.8 - opacity).mean()
 RGB and depth come from one fused 4-channel render, channels-major.
 
-Not in the port yet: the topology-detection hook, checkpoint/resume, the
-JAX package's capacity probing (`auto_size_caps`; the port sizes its pair
-buffers exactly), traced hyperparameters and the scanned camera batch.
+`refine_frame` takes the topology-detection hook (`detect_topo_fn`,
+refine.py:720-737): called once, at `loose_bind_from`, it may loose-bind the
+model. Not in the port yet: checkpoint/resume and `config_dump_path`. Not
+needed on the GPU: the JAX package's capacity probing (`auto_size_caps`; the
+port sizes its pair buffers exactly), traced hyperparameters and the scanned
+camera batch.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ class RefineConfig:
     use_opacity_reg: bool = True
     min_opacity: float = 0.8
     loose_bind_from: int = 1000
+    unbind_threshold: int = 100  # fully flagged gaussians needed to unbind (refine.py:720-737)
     loose_bind_factor_t: float = 100.0
     loose_bind_factor_r: float = 1.0
     do_sh_warmup: bool = True
@@ -166,6 +170,12 @@ def pixel_losses(data: FrameData, cam_idx: int, iteration: int, cfg: RefineConfi
     return loss, loss_dict
 
 
+def _abs(x):
+    """|x| with the JAX package's gradient: +1 at x = 0, where torch.abs has 0.
+    The deltas start at 0, so this decides the unbind terms' first steps."""
+    return torch.where(x >= 0, x, -x)
+
+
 def shared_losses(params, model_config, data: FrameData, iteration: int, cfg: RefineConfig,
                   unbind_weight=None, pre_sh_dc=None):
     """The camera-independent terms: sh_reg, mesh losses, unbind, opacity."""
@@ -199,8 +209,8 @@ def shared_losses(params, model_config, data: FrameData, iteration: int, cfg: Re
 
     if model_config.loose_bind and unbind_weight is not None:
         w = unbind_weight[:, None]
-        loss = loss + cfg.loose_bind_factor_t * (w * torch.abs(params.delta_t)).mean()
-        loss = loss + cfg.loose_bind_factor_r * (w * torch.abs(params.delta_r[..., 1:])).mean()
+        loss = loss + cfg.loose_bind_factor_t * (w * _abs(params.delta_t)).mean()
+        loss = loss + cfg.loose_bind_factor_r * (w * _abs(params.delta_r[..., 1:])).mean()
 
     if cfg.use_opacity_reg:
         op_reg = torch.relu(cfg.min_opacity - sugar.strengths(params)).mean()
@@ -292,6 +302,7 @@ def refine_frame(
     raster_cfg: RasterConfig = RasterConfig(),
     opt_params: OptimizationParams | None = None,
     spatial_lr_scale: float | None = None,
+    detect_topo_fn: Callable | None = None,
     pre_sh_dc=None,
     seed: int = 0,
     log_every: int = 50,
@@ -299,7 +310,12 @@ def refine_frame(
 ):
     """Refinement of one frame (refined_training, refine.py:39-866), on the
     device the params live on. The caller's params are left as they were.
-    Returns (params, model_config, history)."""
+
+    `detect_topo_fn(params, config) -> [F] face weights in [0, 1]` is called
+    once, before the step at `cfg.loose_bind_from`. If at least
+    `cfg.unbind_threshold` gaussians are fully flagged, the model is
+    loose-bound: the same leaves and Adam state, with the delta regularizers
+    on. Returns (params, model_config, history)."""
     params = sugar.SuGaRParams(**{k: v.detach().clone().requires_grad_() for k, v in params.named()})
     n_faces = model_config.faces.shape[0]
     if spatial_lr_scale is None:
@@ -326,6 +342,20 @@ def refine_frame(
             cursor = 0
         cam_idx = int(order[cursor])
         cursor += 1
+
+        # One-time unbind decision (refine.py:720-737), in float64 numpy as
+        # the JAX package takes it: a gaussian counts only where all three
+        # of its face's vertex weights saturate, so w == 0 exactly.
+        if it == cfg.loose_bind_from and detect_topo_fn is not None and not model_config.loose_bind:
+            face_weight = np.asarray(detect_topo_fn(params, model_config))
+            w = 1.0 - np.repeat(face_weight, model_config.n_gaussians_per_face)
+            n_changed = int((w == 0).sum())
+            if n_changed >= cfg.unbind_threshold:
+                params, model_config = sugar.loose_bound(params, model_config)
+                unbind_weight = torch.as_tensor(w, dtype=torch.float32, device=unbind_weight.device)
+            if log_fn:
+                log_fn({"iteration": it, "unbind_changed": n_changed, "loose_bind": model_config.loose_bind})
+
         loss, loss_dict = train_step(
             params, opt_state, lr_fn, model_config, data, cam_idx, it, cfg, raster_cfg,
             sh_deg_at(it, cfg), unbind_weight, pre_sh_dc,

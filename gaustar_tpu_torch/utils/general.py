@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -13,6 +15,22 @@ def resolve_device(device="cuda") -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
     return device
+
+
+def device_ms(dev: torch.device, fn):
+    """(fn(), its ms): between CUDA events recorded before and after the work
+    fn queues on a card (gaps where the card waits for the host included),
+    the host clock on the CPU."""
+    if dev.type == "cuda":
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
+    t0 = time.perf_counter()
+    out = fn()
+    return out, 1e3 * (time.perf_counter() - t0)
 
 
 def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:

@@ -118,6 +118,59 @@ def reference_scene(device="cuda"):
     return params, config, data, RasterConfig()
 
 
+# The topology event's workload: reference_scene's sphere as the trainee and,
+# in the GT, a blob touching it (the new-blob scenario of
+# tests/test_topology_e2e.py scaled x1.2), seen by a ring of 8 cameras.
+TOPO_SPHERE_CENTER = (0.0, 0.0, 4.0)
+TOPO_SPHERE_RADIUS = 0.6
+TOPO_BLOB_CENTER = (0.696, 0.096, 4.0)
+TOPO_BLOB_RADIUS = 0.264
+TOPO_CAMS = 8
+TOPO_SIZES = {
+    # (lat, lon) of the trainee's uv_sphere, blob icosphere subdivisions,
+    # image width, height, focal length
+    "full": (REF_LAT, REF_LON, 4, REF_W, REF_H, REF_FOCAL),
+    "small": (17, 24, 2, 96, 96, 120.0),
+}
+
+
+@torch.no_grad()
+def topology_scene(device="cuda", size="full", seed=0):
+    """The topology-change workload: {verts, faces, colors} of the trainee
+    mesh (the full size is reference_scene's uv_sphere(201, 250): 100,000
+    faces, 600,000 gaussians), `cams` (a list of 8 ring cameras),
+    `gt_images` [8, H, W, 3] and `gt_depths` [8, H, W] on the device.
+
+    The GT is rendered by the port from a target made of the sphere and the
+    blob at opacity 0.995, as synthetic_frame renders: RGB over green, the
+    solid-surface depth with background 10.5. `size="small"` is the CPU
+    tests' variant."""
+    dev = resolve_device(device)
+    lat, lon, blob_subdiv, w, h, focal = TOPO_SIZES[size]
+    rng = np.random.default_rng(seed)
+    verts, faces = uv_sphere(lat, lon, radius=TOPO_SPHERE_RADIUS, center=TOPO_SPHERE_CENTER)
+    colors = rng.uniform(0.2, 0.9, size=(len(verts), 3)).astype(np.float32)
+    bv, bf = icosphere(blob_subdiv, radius=TOPO_BLOB_RADIUS, center=TOPO_BLOB_CENTER)
+    bc = rng.uniform(0.2, 0.9, size=(len(bv), 3)).astype(np.float32)
+
+    target, t_config = sugar.init_sugar(
+        np.concatenate([verts, bv]), np.concatenate([faces, bf + len(verts)]),
+        vertex_colors=np.concatenate([colors, bc]), device=dev,
+    )
+    target.densities.fill_(float(inverse_sigmoid(torch.tensor(0.995, dtype=torch.float32))))
+    cams = ring_cameras(TOPO_CAMS, w=w, h=h, focal=focal, device=dev)
+    raster_cfg = RasterConfig()
+    gts, depths = [], []
+    for cam in cams:
+        img, _ = sugar.render(target, t_config, cam, bg=(0, 1, 0), raster_config=raster_cfg)
+        gts.append(img)
+        d, _ = sugar.render_depth(target, t_config, cam, max_depth=10.0, raster_config=raster_cfg,
+                                  use_solid_surface=True)
+        depths.append(torch.where(d > 9.0, torch.full_like(d, 10.5), d))
+    return {"verts": verts, "faces": faces, "colors": colors, "cams": cams,
+            "gt_images": torch.stack(gts), "gt_depths": torch.stack(depths), "raster_cfg": raster_cfg}
+
+
 @torch.no_grad()
 def render_inputs(params, config, camera):
     """(means, cov3d, opacities, features [N, 4], camera) of one camera's

@@ -1,5 +1,6 @@
 """The port, and the scripts and tests that run it on a card (where JAX is not
-installed), import neither JAX, optax nor anything of the JAX package."""
+installed), import neither JAX, optax nor anything of the JAX package, nor
+OpenCV or PIL, which the card's machine lacks."""
 
 import ast
 import pathlib
@@ -9,7 +10,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "gaustar_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "profile_step.py", ROOT / "tests" / "test_torch_kernels_gpu.py"]
-FORBIDDEN = ("jax", "jaxlib", "optax", "gaustar_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "gaustar_tpu", "cv2", "PIL")
 
 
 def _imported_modules(path):
@@ -32,5 +33,7 @@ def test_no_jax_imports(path):
 def test_port_has_modules():
     names = {p.relative_to(ROOT / "gaustar_tpu_torch").as_posix() for p in PORT_FILES if "gaustar_tpu_torch" in p.parts}
     for required in ("cameras.py", "bridge.py", "ops/blend_cuda.py", "ops/binning.py",
-                     "models/sugar.py", "train/refine.py", "train/optimizer.py"):
+                     "models/sugar.py", "train/refine.py", "train/optimizer.py",
+                     "ops/image.py", "tools/geometry.py", "train/topo_detect.py", "mesh/tsdf.py",
+                     "mesh/surgery.py", "train/mesh_update.py", "train/sequence.py"):
         assert required in names

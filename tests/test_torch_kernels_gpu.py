@@ -1,5 +1,6 @@
 """The port's CUDA blend kernels on the card: against their plain PyTorch
-versions, through the golden fixtures, and in the refine step. Every test
+versions, through the golden fixtures, in the refine step and in the
+topology event's forward-only renders (detection, fusion). Every test
 needs a CUDA card and skips without one. JAX is not imported, so the file runs
 on a machine without it:
 
@@ -176,3 +177,53 @@ def test_refine_step_on_card_matches_cpu(cuda):
     assert abs(l_g - l_c) <= 1e-4 * abs(l_c)
     for a, b in zip(g_g, g_c):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3 * float(b.abs().max()))
+
+
+def _topo_inputs(dev):
+    """A small scene for the topology event's forward-only renders: the
+    target of synthetic_frame (6 cameras, 48x48, 1,920 gaussians) at
+    opacity 0.999, its GT depth shifted in one half so that faces flag."""
+    from gaustar_tpu_torch.mesh.topology import build_topology
+
+    _, config, data, target, rc = synthetic_frame(n_cams=6, subdiv=2, target_opacity=0.999, device=dev)
+    gt = data.gt_depths.clone()
+    gt[:, :, :24] = torch.where(gt[:, :, :24] < 10, gt[:, :, :24] - 0.3, gt[:, :, :24])
+    topo = build_topology(config.faces.cpu().numpy(), target.points.shape[0])
+    return target, config, data, gt, topo, rc
+
+
+def test_detect_topo_err_on_card_matches_cpu(cuda):
+    from gaustar_tpu_torch.ops import blend_cuda
+    from gaustar_tpu_torch.train import topo_detect
+
+    cfg = topo_detect.TopoDetectConfig(min_observe=2, mesh_prop=5, detect_floor=False, depth_agreement=0.1,
+                                       edge_threshold=0.6)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        target, config, data, gt, topo, rc = _topo_inputs(dev)
+        blend_cuda.reset_launch_counts()
+        out[dev.type] = topo_detect.detect_topo_err(target, config, data.cameras, gt, topo, rc, cfg)
+        if dev.type == "cuda":
+            assert blend_cuda.LAUNCHES == {"blend_fwd": 2 * 6, "blend_bwd": 0}  # two renders per camera
+    w_g, w_c = out["cuda"], out["cpu"]
+    # the CPU test's tolerances (tests/test_torch_topo_detect.py)
+    assert (np.abs(w_g - w_c) <= 1e-4).mean() >= 0.995
+    assert ((w_g >= 0.6) != (w_c >= 0.6)).mean() <= 0.005
+    assert (w_c >= 0.6).mean() > 0.05  # the shifted half flags
+
+
+def test_render_rgbd_for_fusion_on_card_matches_cpu(cuda):
+    from gaustar_tpu_torch.cameras import index_camera
+    from gaustar_tpu_torch.train import mesh_update
+
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        target, config, data, _, _, rc = _topo_inputs(dev)
+        with torch.no_grad():
+            out[dev.type] = [t.cpu() for t in mesh_update.render_rgbd_for_fusion(
+                target, config, index_camera(data.cameras, 1), rc)]
+    (rgb_g, d_g), (rgb_c, d_c) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(rgb_g, rgb_c, rtol=0, atol=1e-4)
+    kept = (d_g > 0) & (d_c > 0)
+    assert ((d_g > 0) == (d_c > 0)).float().mean() >= 0.995 and kept.float().mean() > 0.03
+    torch.testing.assert_close(d_g[kept], d_c[kept], rtol=0, atol=1e-4)
