@@ -5,8 +5,9 @@
 
 Phases, one line of output each (or a few):
   1 card     the device name and `nvidia-smi` name / power limit;
-  2 build    nvcc builds of the blend kernels (csrc/*.cu), with seconds and
-             the -Xptxas -v register / shared-memory report;
+  2 build    nvcc builds of the blend kernels and the nvJPEG binding
+             (csrc/*.cu, one nvcc each, all at once), with seconds and the
+             -Xptxas -v register / shared-memory report;
     demand   the full-width scene's (gaussian, tile) pairs and non-empty
              tiles at initialisation, per camera; their maximum must equal
              the JAX package's count on the CPU exactly;
@@ -38,7 +39,29 @@ Phases, one line of output each (or a few):
              fails unless the model loose-bound, the surgery grafted at least
              one component, the tracked faces stay on the sphere, the graft
              reaches toward the blob, every loss is finite and each kernel
-             launched exactly as often as the event implies.
+             launched exactly as often as the event implies;
+    native   the native mesh library (g++ build of native/meshops.cpp) on the
+             event's fused mesh: quadric decimation to NATIVE_FACES faces and
+             NATIVE_SMOOTH_ITERS Laplacian iterations, host ms of each; fails
+             unless the face count is in [0.9, 1] x NATIVE_FACES, every vertex
+             is finite and the decimated vertices lie within a voxel (median
+             distance to the fused vertices, scipy KD-tree);
+  8 seq      the sequence: utils/synthetic.sequence_dataset writes a two-frame
+             dataset in the reference layout (the full-width sphere, moved by
+             SEQ_DX along x in frame 1; 8 ring cameras at 1600x1024; JPEG
+             frames through nvJPEG, PNG masks, depth npz, analytic flows at
+             half resolution) to a temporary directory, then run_sequence
+             (frames 0-1, SEQ_ITERS iterations each, no mesh update, the
+             warp at utils/synthetic.SEQ_WARP) and
+             render_sequence (RGB and depth per camera and frame). Per frame
+             it prints the JPEG decodes (CUDA events), the refine's wall and
+             median iteration, the warp's host stages and observed fraction,
+             the exports; then render_sequence's time and peak memory. It
+             fails unless every file of the contract exists, the frame-1
+             checkpoint loads equal to the final parameters, the warp moves
+             the mesh by 0.5-1.5 x SEQ_DX along x and closer to frame 1's
+             sphere, every loss is finite and each kernel launched exactly
+             as often as the two entry points imply.
 The last line is the JSON result {"ok": true, "device": {...}}. Any failed
 phase raises, and the script exits non-zero without that line.
 """
@@ -46,10 +69,12 @@ phase raises, and the script exits non-zero without that line.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -74,6 +99,23 @@ TOPO_BOUNDARY_PAD = 0.12
 TOPO_SOLID_OPACITY = 0.995
 TOPO_MIN_PROTRUSION = 0.62  # m along the blob direction (sphere radius 0.6)
 TOPO_MAX_TRACKED_DEV = 0.1  # m, median |r - 0.6| of the tracked faces' vertices
+# The native line (phase 7): the decimation's target, the smoothing's
+# iterations (extract_mesh_fusion's), and the fusion voxel (SequenceConfig's
+# default) that bounds the decimated vertices' distance to the fused ones.
+NATIVE_FACES = 100_000
+NATIVE_SMOOTH_ITERS = 10
+FUSION_VOXEL = 0.008
+# The sequence (phase 8): refine iterations per frame (the reference runs
+# 2000) and the frames (0 and 1).
+SEQ_ITERS = 200
+SEQ_FRAMES = 2
+# The warp's checks: the least observed fraction of the vertices and the band
+# of the median x-move, in dx. On the unrefined frame-0 sphere the warp
+# observes 0.472 of the vertices and moves their median by 0.962 dx
+# (tests/test_torch_warp.py, full width); the poles, out of view of >= 2
+# cameras, keep what propagation and smoothing give them (mean 0.742 dx).
+SEQ_MIN_OBSERVED = 0.3
+SEQ_MEDIAN_MOVE = (0.8, 1.2)
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -285,7 +327,8 @@ def solid_view_inputs(torch, params, config, camera, solid_opacity):
 
 def topo_phase(torch, bc):
     """Phase 7: the topology event at full width. Returns {kernel: launches}
-    of the event and the forward-only check's max |error|."""
+    of the event, the forward-only check's max |error| and the event's fused
+    mesh."""
     from gaustar_tpu_torch.cameras import index_camera, stack_cameras
     from gaustar_tpu_torch.models import sugar
     from gaustar_tpu_torch.train import mesh_update, sequence, topo_detect
@@ -406,7 +449,149 @@ def topo_phase(torch, bc):
         fail(f"iterations logged: {len(stamps['refine'])} and {len(stamps['re_refine'])}")
     if launches != expected:
         fail(f"the topology event launched the kernels {launches}, expected {expected}")
-    return launches, fwd_err
+    return launches, fwd_err, ev["fusion_mesh"]
+
+
+def native_phase(fused):
+    """Phase 7's native line: decimate and smooth the fused mesh on the host."""
+    from scipy.spatial import cKDTree
+
+    from gaustar_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.build()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dv, df = native.decimate(fused.verts, fused.faces, NATIVE_FACES)
+    t_dec = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    sv = native.laplacian_smooth(fused.verts, fused.faces, iterations=NATIVE_SMOOTH_ITERS)
+    t_smooth = 1e3 * (time.perf_counter() - t0)
+    dist = float(np.median(cKDTree(fused.verts).query(dv)[0]))
+    log("native", f"build {t_build:.1f} s ({native.BUILD_LOG.get('seconds', 0.0):.1f} s of g++); decimate "
+                  f"{len(fused.faces)} -> {len(df)} faces ({len(dv)} vertices) {t_dec:.1f} host ms; "
+                  f"laplacian_smooth {NATIVE_SMOOTH_ITERS} iterations of {len(sv)} vertices {t_smooth:.1f} host ms; "
+                  f"median distance decimated -> fused vertices {1e3 * dist:.3f} mm (voxel {1e3 * FUSION_VOXEL} mm)")
+    if not 0.9 * NATIVE_FACES <= len(df) <= NATIVE_FACES:
+        fail(f"decimation left {len(df)} faces, target {NATIVE_FACES}")
+    if not (np.isfinite(dv).all() and np.isfinite(sv).all()):
+        fail("the native library returned non-finite vertices")
+    if not dist < FUSION_VOXEL:
+        fail(f"the decimated vertices left the fused surface: median distance {dist:.4f} m")
+
+
+def seq_phase(torch, bc, root):
+    """Phase 8: run_sequence and render_sequence over the full-width
+    two-frame dataset written under `root`. Returns {kernel: launches} of
+    the two entry points."""
+    from gaustar_tpu_torch.io.checkpoint import load_sugar
+    from gaustar_tpu_torch.io.meshio import read_obj
+    from gaustar_tpu_torch.tools.warp_mesh import WarpConfig
+    from gaustar_tpu_torch.train import render_seq, sequence
+    from gaustar_tpu_torch.utils.synthetic import SEQ_CAMS, SEQ_WARP, sequence_dataset
+
+    data_root, work_root = os.path.join(root, "data"), os.path.join(root, "work")
+    t0 = time.perf_counter()
+    info = sequence_dataset(data_root, "full", "cuda")
+    torch.cuda.synchronize()
+    log("seq", f"dataset: {SEQ_FRAMES} frames x {SEQ_CAMS} cameras, {len(info['faces'])} faces, "
+               f"{6 * len(info['faces'])} gaussians, written in {time.perf_counter() - t0:.1f} s")
+
+    stamps = []  # per frame, the host clock at each logged iteration
+
+    def on_log(entry):
+        if "loss" not in entry:
+            return
+        if not all(np.isfinite(float(v)) for v in entry.values()):
+            fail(f"non-finite value in the sequence's log: {entry}")
+        if entry["iteration"] == 1:
+            stamps.append([])
+        torch.cuda.synchronize()
+        stamps[-1].append(time.perf_counter())
+
+    seq = sequence.SequenceConfig(data_root=data_root, work_root=work_root, frame_0=0, frame_end=SEQ_FRAMES,
+                                  refinement_iterations=SEQ_ITERS, disable_mesh_update=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bc.reset_launch_counts()
+    t0 = time.perf_counter()
+    final, final_config, frames = sequence.run_sequence(seq, warp_cfg=WarpConfig(**SEQ_WARP), device="cuda",
+                                                        log_fn=on_log, log_every=1)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    peak_run = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    render_seq.render_sequence(data_root, work_root, 0, SEQ_FRAMES, iterations=SEQ_ITERS, render_modes="bd",
+                               device="cuda")
+    torch.cuda.synchronize()
+    t_render = 1e3 * (time.perf_counter() - t0)
+    peak_render = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(bc.LAUNCHES)
+
+    for rec, st in zip(frames, stamps):
+        s, w = rec["seconds"], rec["warp"]
+        steps = [1e3 * (b - a) for a, b in zip(st[WARMUP_STEPS - 1:], st[WARMUP_STEPS:])]
+        warp = ("no warp (last frame)" if w is None else
+                f"warp {1e3 * s['warp']:.1f} ms wall (depths and flows loaded, mesh written), of which "
+                f"observations {w['observe_ms']:.1f} host ms ({SEQ_CAMS} cameras), robust average + "
+                f"propagation + smoothing {w['average_ms']:.1f} host ms; visible per camera "
+                f"{[round(x, 4) for x in w['visible_per_camera']]}, observed fraction {w['observed_fraction']:.4f}")
+        log("seq", f"frame {rec['frame']}: JPEG decode {rec['decode_ms']:.2f} ms ({SEQ_CAMS} cameras, CUDA events), "
+                   f"load {1e3 * s['load']:.1f} ms wall; refine {s['refine']:.2f} s wall, median iteration "
+                   f"{statistics.median(steps):.2f} ms ({len(st)} its); exports ms: npz {1e3 * s['export_npz']:.1f}, "
+                   f"ply {1e3 * s['export_ply']:.1f}, obj {1e3 * s['export_obj']:.1f}; {warp}")
+    log("seq", f"run_sequence {t_run:.2f} s, peak mem {peak_run:.2f} GiB; render_sequence {t_render:.1f} ms "
+               f"({SEQ_FRAMES} frames x {SEQ_CAMS} cameras, RGB JPEG + depth npz), peak mem {peak_render:.2f} GiB")
+
+    missing = []
+    for f in range(SEQ_FRAMES):
+        fdir = os.path.join(work_root, f"{f:04d}")
+        names = [f"{SEQ_ITERS}.npz", f"{SEQ_ITERS}.json", f"{f:04d}.ply", "color_mesh.obj", "config.json",
+                 "metrics.jsonl"]
+        names += [f"render_b/render_{c:06d}.jpg" for c in range(SEQ_CAMS)]
+        names += [f"render_d/depth_{c:06d}.npz" for c in range(SEQ_CAMS)]
+        if f > 0:
+            names.append("coarse_mesh/warp_smooth.obj")
+        missing += [os.path.join(fdir, n) for n in names if not os.path.exists(os.path.join(fdir, n))]
+    if missing:
+        fail(f"the sequence did not write {missing}")
+    if [len(st) for st in stamps] != [SEQ_ITERS] * SEQ_FRAMES:
+        fail(f"iterations logged per frame: {[len(st) for st in stamps]}")
+
+    last = SEQ_FRAMES - 1
+    loaded, lconf, _ = load_sugar(os.path.join(work_root, f"{last:04d}", f"{SEQ_ITERS}.npz"), "cuda")
+    unequal = [n for n, t in final.named() if not torch.equal(getattr(loaded, n).detach(), t.detach())]
+    if unequal or not torch.equal(lconf.faces, final_config.faces):
+        fail(f"the frame-{last} checkpoint does not load to the final parameters: {unequal}")
+
+    v0, _, _ = read_obj(os.path.join(work_root, "0000", "color_mesh.obj"))
+    vw, _, _ = read_obj(os.path.join(work_root, "0001", "coarse_mesh", "warp_smooth.obj"))
+    dx = info["dx"]
+    move = (vw - v0).mean(axis=0)
+    median_x = float(np.median(vw[:, 0] - v0[:, 0]))
+    observed = frames[0]["warp"]["observed_fraction"]
+    center = np.asarray([dx, 0.0, 4.0])
+    radius = float(np.median(np.linalg.norm(info["verts"] - [0.0, 0.0, 4.0], axis=1)))
+    dev_w, dev_0 = (float(np.median(np.abs(np.linalg.norm(v - center, axis=1) - radius))) for v in (vw, v0))
+    log("seq", f"warp 0 -> 1: observed fraction {observed:.4f}; mean move {move.tolist()} m, median x-move "
+               f"{median_x / dx:.4f} dx (dx {dx}); median |r - {radius:.3f}| about frame 1's centre {dev_w:.5f} m "
+               f"warped, {dev_0:.5f} m unwarped")
+    if not observed >= SEQ_MIN_OBSERVED:
+        fail(f"the warp observed {observed:.4f} of the vertices, expected at least {SEQ_MIN_OBSERVED}")
+    if not 0.5 * dx <= move[0] <= 1.5 * dx:
+        fail(f"the warp moved the mesh by {move[0]:.4f} m along x, expected about {dx}")
+    if not SEQ_MEDIAN_MOVE[0] * dx <= median_x <= SEQ_MEDIAN_MOVE[1] * dx:
+        fail(f"the warp's median x-move is {median_x / dx:.4f} dx, expected within {SEQ_MEDIAN_MOVE}")
+    if not dev_w < 0.5 * dev_0:
+        fail("the warped mesh is not nearer frame 1's sphere than half the unwarped one's distance")
+
+    expected = {"blend_fwd": SEQ_FRAMES * SEQ_ITERS + 2 * SEQ_FRAMES * SEQ_CAMS, "blend_bwd": SEQ_FRAMES * SEQ_ITERS}
+    log("seq", f"launches {launches}, expected {expected} (fwd = {SEQ_FRAMES} x {SEQ_ITERS} iterations + "
+               f"2 renders x {SEQ_FRAMES} frames x {SEQ_CAMS} cameras)")
+    if launches != expected:
+        fail(f"the sequence launched the kernels {launches}, expected {expected}")
+    return launches
 
 
 def kernel_phases(torch, bc, t_start):
@@ -576,19 +761,28 @@ def main() -> int:
 
     # 2 build
     t0 = time.perf_counter()
-    build_log = _build.build(["blend_fwd", "blend_bwd"])
+    build_log = _build.build(["blend_fwd", "blend_bwd", "jpeg_codec"])
     for name, entry in build_log.items():
         usage = [ln.strip() for ln in entry["log"].splitlines() if "registers" in ln or "smem" in ln]
         log("build", f"{name}: {entry['seconds']:.1f} s; " + " | ".join(usage))
     log("build", f"wall {time.perf_counter() - t0:.1f} s")
 
     kernels = kernel_phases(torch, bc, t_start)
-    # 7 the topology event
+    # 7 the topology event, then the native library on its fused mesh
     t0 = time.perf_counter()
-    topo_launches, fwd_only_err = topo_phase(torch, bc)
+    topo_launches, fwd_only_err, fused = topo_phase(torch, bc)
     log("topo", f"phase wall {time.perf_counter() - t0:.1f} s")
+    native_phase(fused)
+    del fused
+    torch.cuda.empty_cache()
+    # 8 the sequence
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seq_") as root:
+        seq_launches = seq_phase(torch, bc, root)
+    log("seq", f"phase wall {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         k["launches_topo"] = topo_launches[k["name"]]
+        k["launches_seq"] = seq_launches[k["name"]]
     kernels[0]["max_abs_err_fwd_only"] = fwd_only_err
     log("done", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

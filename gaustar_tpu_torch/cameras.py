@@ -81,6 +81,18 @@ class Camera:
     def camera_center(self) -> torch.Tensor:
         return -(self.R @ self.T)
 
+    def downscale(self, factor: float) -> "Camera":
+        """Downscale resolution (reference refine.py:275-280 downscale path)."""
+        return dataclasses.replace(
+            self,
+            fx=self.fx / factor,
+            fy=self.fy / factor,
+            cx=self.cx / factor,
+            cy=self.cy / factor,
+            width=int(round(self.width / factor)),
+            height=int(round(self.height / factor)),
+        )
+
     @staticmethod
     def from_w2c(w2c, fx, fy, cx, cy, width: int, height: int, device="cuda", **kw) -> "Camera":
         """From a 4x4 world-to-camera matrix (COLMAP/OpenCV convention)."""

@@ -26,7 +26,7 @@ from gaustar_tpu_torch.cameras import Camera
 from gaustar_tpu_torch.ops import segment
 from gaustar_tpu_torch.ops import sh as sh_ops
 from gaustar_tpu_torch.ops.rasterizer import RasterConfig, rasterize
-from gaustar_tpu_torch.utils.general import inverse_sigmoid, resolve_device
+from gaustar_tpu_torch.utils.general import inverse_sigmoid, matrix_to_quaternion, resolve_device
 
 _SQRT3 = float(np.sqrt(3.0))
 
@@ -253,6 +253,20 @@ def _frame_cols_soa(params: SuGaRParams, config: SuGaRConfig, v=None):
 
         r0, r1, r2 = rot(r0), rot(r1), rot(r2)
     return r0, r1, r2
+
+
+def gaussian_frames(params: SuGaRParams, config: SuGaRConfig) -> torch.Tensor:
+    """[N, 3, 3] rotations with columns (normal, in-plane 1, in-plane 2),
+    the loose-bind rotation applied (sugar_model.py:478-508)."""
+    r0, r1, r2 = _frame_cols_soa(params, config)
+    cols = [torch.stack([c[d].reshape(-1) for d in range(3)], dim=-1) for c in (r0, r1, r2)]
+    return torch.stack(cols, dim=-1)
+
+
+def quaternions(params: SuGaRParams, config: SuGaRConfig) -> torch.Tensor:
+    """Normalized w-first quaternions of the gaussian frames, for the 3DGS
+    export (sugar_model.py:506-508)."""
+    return matrix_to_quaternion(gaussian_frames(params, config))
 
 
 def covariance6(params: SuGaRParams, config: SuGaRConfig, use_solid_surface: bool = False, v=None):

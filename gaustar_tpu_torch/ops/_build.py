@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` has a plain C interface and compiles with nvcc alone
 (no PyTorch headers: seconds, not minutes) into
 `build/kernels/lib<name>-<hash>.so` at the repo root, keyed by the hash of
-the source, the headers of `csrc/` and the flags, so an edited source or
-header is rebuilt. `build()` starts one
-nvcc per source, all at once.
+the source, the headers of `csrc/`, the flags and the library's own link
+flags (`LINK_FLAGS`: `jpeg_codec` links the toolkit's libnvjpeg, found at run
+time through an rpath to the toolkit's lib64), so an edited source, header or
+flag is rebuilt. `build()` starts one nvcc per source, all at once.
 
 `-fmad=false`: the blend's discrete decisions (power <= 0, alpha >= 1/255,
 T * (1 - alpha) < 1e-4, and so `n_contrib`) flip on one ULP. Without FMA
@@ -30,6 +31,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# Libraries a source links beyond the CUDA runtime, per source name.
+LINK_FLAGS = {"jpeg_codec": ("-lnvjpeg",)}
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, dict] = {}  # name -> {"seconds": s, "log": nvcc output}
 
@@ -41,9 +45,24 @@ def _nvcc() -> str:
     return path
 
 
+def cuda_home() -> Path:
+    """The CUDA toolkit's root: $CUDA_HOME, else /usr/local/cuda."""
+    return Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda")
+
+
+def link_flags(name: str) -> tuple:
+    """The source's own link flags, with an rpath to the toolkit's lib64 so
+    that ctypes finds the linked library without LD_LIBRARY_PATH."""
+    extra = LINK_FLAGS.get(name, ())
+    if not extra:
+        return ()
+    return (*extra, "-Xlinker", f"-rpath,{cuda_home() / 'lib64'}")
+
+
 def lib_path(name: str) -> Path:
     src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    flags = " ".join((*NVCC_FLAGS, *link_flags(name))).encode()
+    digest = hashlib.sha1(src + flags).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -57,7 +76,7 @@ def build(names) -> dict[str, dict]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"), *link_flags(name)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         procs[name] = (proc, tmp, out, time.perf_counter())
     errors = []
@@ -73,17 +92,19 @@ def build(names) -> dict[str, dict]:
     return BUILD_LOG
 
 
-def load(name: str, argtypes) -> ctypes.CDLL:
-    """The built library of `csrc/<name>.cu` (built now if missing), with the
-    C function `name` bound to `argtypes` and an int (cudaError_t) result."""
+def load(name: str, argtypes: dict) -> ctypes.CDLL:
+    """The built library of `csrc/<name>.cu` (built now if missing), with its
+    C functions bound to their argtypes ({function: argtypes}) and an int
+    (error code) result."""
     lib = _LIBS.get(name)
     if lib is None:
         path = lib_path(name)
         if not path.exists():
             build([name])
         lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, types in argtypes.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib

@@ -279,7 +279,7 @@ def blend_fwd_split(pair_data, tile_start, tile_count, grid_x, width, height, ch
     composite their set bits. `split` is (plan, test bits), which the
     backward of the same inputs reads (blend_bwd_cuda)."""
     _check_cuda(pair_data, tile_start, tile_count, channels)
-    lib = _build.load("blend_fwd", _FWD_ARGS)
+    lib = _build.load("blend_fwd", {"blend_fwd": _FWD_ARGS})
     plan = split_plan(tile_count, pair_data.shape[1])
     dev = pair_data.device
     bits = torch.empty((plan.words, PIX), dtype=torch.int32, device=dev)
@@ -303,7 +303,7 @@ def blend_bwd_cuda(pair_data, tile_start, tile_count, grid_x, width, height, cha
     and `split`; the image's width and height are not read, since the
     forward's bits and n_contrib already leave out pixels outside it."""
     _check_cuda(pair_data, tile_start, tile_count, channels, fwd, dout)
-    lib = _build.load("blend_bwd", _BWD_ARGS)
+    lib = _build.load("blend_bwd", {"blend_bwd": _BWD_ARGS})
     dev = pair_data.device
     plan, bits = split
     states = torch.empty((max(plan.states, 1), 2 + 2 * channels, PIX), dtype=torch.float32, device=dev)

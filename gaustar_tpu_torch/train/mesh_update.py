@@ -5,7 +5,8 @@ extract_mesh_fusion (refined_mesh.py:311-459): render RGB and alpha-normalized
 depth from 60 orbit cameras (12 azimuths x 5 elevations) plus every rig
 camera, drop background (alpha < 0.5) and depth-edge pixels, integrate into
 the dense TSDF volume (voxel 8 mm, trunc 2 cm) on the device, extract the
-fused surface on the host.
+fused surface on the host; optionally Laplacian-smooth and decimate it with
+the native mesh library (native/).
 
 update_mesh_with_fusion (refined_mesh.py:924-1062): try update_mesh_topo over
 aabb_pad in {10, 15, 20, 25, 30} mm and keep the attempt with the smallest
@@ -20,6 +21,7 @@ import time
 import numpy as np
 import torch
 
+from gaustar_tpu_torch import native
 from gaustar_tpu_torch.cameras import Camera, index_camera, orbit_cameras, stack_cameras
 from gaustar_tpu_torch.mesh import surgery, tsdf
 from gaustar_tpu_torch.models import sugar
@@ -32,10 +34,6 @@ from gaustar_tpu_torch.utils.general import device_ms
 
 #: What the most recent extract_mesh_fusion call did: views, volume, times.
 last_fusion: dict | None = None
-
-_NATIVE = ("needs the native mesh library (libmeshops: decimate, Laplacian smooth), "
-           "not ported yet (ROADMAP queue 1, item 11)")
-
 
 @torch.no_grad()
 def render_rgbd_for_fusion(
@@ -120,12 +118,13 @@ def extract_mesh_fusion(
     trained ones, the reference's behaviour): short-budget runs need it, since
     under-trained opacities mix front and back surface depths. One volume
     block lives on the device at a time; each block re-renders the views and
-    is copied to the host for extraction."""
-    if smooth:
-        raise NotImplementedError(f"extract_mesh_fusion(smooth=True) {_NATIVE}")
-    if simplify_face_num:
-        raise NotImplementedError(f"extract_mesh_fusion(simplify_face_num > 0) {_NATIVE}")
+    is copied to the host for extraction. `smooth`: 10 Laplacian iterations
+    of the fused vertices; `simplify_face_num` > 0: quadric decimation to
+    that many faces, after which the faces carry no colour (zeros), as in
+    the JAX package."""
     global last_fusion
+    if smooth or simplify_face_num:
+        native.build()  # a missing compiler raises before the renders, not after
     dev = params.points.device
     params = detection_params(params, solid_opacity)
     pts = sugar.gaussian_centers(params, config).cpu().numpy()
@@ -151,7 +150,13 @@ def extract_mesh_fusion(
 
     t0 = time.perf_counter()
     verts, faces, colors = tsdf.extract_mesh_tiled(plan, host_blocks)
-    face_colors = colors[faces].mean(axis=1) if len(faces) else np.zeros((0, 3))
+    if smooth and len(faces):
+        verts = native.laplacian_smooth(verts, faces, iterations=10).astype(np.float32)
+    if simplify_face_num and len(faces) > simplify_face_num:
+        verts, faces = native.decimate(verts, faces, simplify_face_num)
+        verts = verts.astype(np.float32)
+        colors = None
+    face_colors = colors[faces].mean(axis=1) if (colors is not None and len(faces)) else np.zeros((len(faces), 3))
     mesh = surgery.Mesh(verts.astype(np.float64), faces.astype(np.int64), face_colors)
     last_fusion = {
         "views": n_views, "blocks": plan.n_blocks, "block_dims": plan.block_dims,

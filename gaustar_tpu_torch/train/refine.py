@@ -14,7 +14,9 @@ RGB and depth come from one fused 4-channel render, channels-major.
 
 `refine_frame` takes the topology-detection hook (`detect_topo_fn`,
 refine.py:720-737): called once, at `loose_bind_from`, it may loose-bind the
-model. Not in the port yet: checkpoint/resume and `config_dump_path`. Not
+model. It writes the run's config.json (`config_dump_path`) and a mid-frame
+refine state every `checkpoint_every` iterations (`checkpoint_path`), from
+which `resume` continues on the schedule of an uninterrupted run. Not
 needed on the GPU: the JAX package's capacity probing (`auto_size_caps`; the
 port sizes its pair buffers exactly), traced hyperparameters and the scanned
 camera batch.
@@ -23,12 +25,15 @@ camera batch.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from gaustar_tpu_torch.cameras import Camera, index_camera
+from gaustar_tpu_torch.io import checkpoint as ckpt_io
 from gaustar_tpu_torch.models import sugar
 from gaustar_tpu_torch.ops import losses
 from gaustar_tpu_torch.ops.rasterizer import RasterConfig
@@ -307,6 +312,10 @@ def refine_frame(
     seed: int = 0,
     log_every: int = 50,
     log_fn: Callable | None = None,
+    config_dump_path: str | None = None,
+    checkpoint_every: int = 0,
+    checkpoint_path: str | None = None,
+    resume: bool = False,
 ):
     """Refinement of one frame (refined_training, refine.py:39-866), on the
     device the params live on. The caller's params are left as they were.
@@ -315,7 +324,15 @@ def refine_frame(
     once, before the step at `cfg.loose_bind_from`. If at least
     `cfg.unbind_threshold` gaussians are fully flagged, the model is
     loose-bound: the same leaves and Adam state, with the delta regularizers
-    on. Returns (params, model_config, history)."""
+    on. Returns (params, model_config, history).
+
+    `config_dump_path`: write the run's hyperparameters as json
+    (refine.py:459-519). `checkpoint_every` > 0 with `checkpoint_path`:
+    save the refine state (io/checkpoint.save_refine_state) after every
+    `checkpoint_every`-th step. `resume` with an existing `checkpoint_path`:
+    restore params, Adam state and iteration, replay the loose-bind
+    transition, and fast-forward the camera-order rng, so the run continues
+    exactly as one that was never interrupted."""
     params = sugar.SuGaRParams(**{k: v.detach().clone().requires_grad_() for k, v in params.named()})
     n_faces = model_config.faces.shape[0]
     if spatial_lr_scale is None:
@@ -328,6 +345,18 @@ def refine_frame(
     lr_fn = make_lr_fn(opt_params, spatial_lr_scale)
     opt_state = adam_init(params)
 
+    if config_dump_path:
+        dump = {
+            **dataclasses.asdict(cfg),
+            "spatial_lr_scale": float(spatial_lr_scale),
+            "n_faces": int(n_faces),
+            "n_gaussians": int(params.scales.shape[0]),
+            "opt": dataclasses.asdict(opt_params),
+            "raster": dataclasses.asdict(raster_cfg),
+        }
+        with open(config_dump_path, "w") as f:
+            json.dump(dump, f, indent=2, sort_keys=True)
+
     n_cams = data.gt_images.shape[0]
     rng = np.random.default_rng(seed)
     order = rng.permutation(n_cams)
@@ -336,7 +365,23 @@ def refine_frame(
     if pre_sh_dc is None:
         pre_sh_dc = params.sh_dc.detach()[:, 0, :] * 0.0
     history = []
-    for it in range(1, cfg.num_iterations + 1):
+
+    start_it = 1
+    if resume and checkpoint_path is not None and os.path.exists(checkpoint_path):
+        params, opt_state, done_it, uw_saved, was_loose = ckpt_io.load_refine_state(
+            checkpoint_path, params.points.device)
+        if was_loose and not model_config.loose_bind:
+            params, model_config = sugar.loose_bound(params, model_config)
+        if uw_saved is not None:
+            unbind_weight = uw_saved
+        start_it = done_it + 1
+        for _ in range(done_it):
+            if cursor >= n_cams:
+                order = rng.permutation(n_cams)
+                cursor = 0
+            cursor += 1
+
+    for it in range(start_it, cfg.num_iterations + 1):
         if cursor >= n_cams:
             order = rng.permutation(n_cams)
             cursor = 0
@@ -367,4 +412,6 @@ def refine_frame(
             history.append(entry)
             if log_fn:
                 log_fn(entry)
+        if checkpoint_every and checkpoint_path and it % checkpoint_every == 0:
+            ckpt_io.save_refine_state(checkpoint_path, params, opt_state, it, unbind_weight, model_config.loose_bind)
     return params, model_config, history

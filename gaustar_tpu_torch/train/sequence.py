@@ -1,37 +1,53 @@
-"""Per-frame sequence driver, partial (counterpart of
-gaustar_tpu/train/sequence.py; train_seq.py:101-249).
+"""Per-frame sequence driver (counterpart of gaustar_tpu/train/sequence.py;
+train_seq.py:101-249).
 
-What is here is one frame and its topology event:
-  1. `refine_one_frame` binds a SuGaR model to the frame's mesh and refines
+`run_sequence` runs, for each frame of an on-disk dataset (io/dataset.py):
+  1. `refine_one_frame`: bind a SuGaR model to the coarse mesh (frame 0:
+     init_mesh with edge-iso 1000 and area-iso 5000; later frames: the
+     flow-warped warp_smooth mesh, area-iso 1000, edge-iso off, SH-reg prior
+     and SH initialisation from the previous frame's checkpoint) and refine
      it, with unbind detection at iters/2 unless disabled;
-  2. `update_frame_topology` is the sequence driver's mesh-update block
-     (train_seq.py:150-213) for a model that loose-bound: TSDF-fuse the
-     rendered views, detect again, update the mesh topology, recolour the new
-     vertices from the GT views and re-refine on the updated mesh for iters/2
-     with unbinding off. It writes no files; the caller gets the event.
+  2. `update_frame_topology`, if the model loose-bound: TSDF-fuse the
+     rendered views, detect again, update the mesh topology, recolour the
+     new vertices from the GT views and re-refine on the updated mesh for
+     iters/2 with unbinding off; run_sequence writes updated_mesh.obj and
+     face_corr.npz (track_face_mask + ref_area);
+  3. exports: checkpoint (.npz + .json), 3DGS .ply, color_mesh.obj;
+  4. the flow warp of the color mesh (tools/warp_mesh.py) that initializes
+     the next frame.
+
+File contracts mirror the reference (SURVEY section 1) and the JAX package:
+  work/<NNNN>/<iters>.npz (+.json), color_mesh.obj, <NNNN>.ply,
+  work/<NNNN>/face_corr.npz, updated_mesh.obj, config.json, metrics.jsonl,
+  work/<NNNN+interval>/coarse_mesh/warp_smooth.obj
 
 The JAX package's compile-reuse devices (face-count bucketing, background
 prewarm of the detection and fusion programs, probed pair capacities) have
 no use in an eager program; SequenceConfig keeps their fields, and setting
-them raises. The sequence loop itself (warp, exports, checkpoints) is not
-ported yet.
+them raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import numpy as np
 import torch
 
 from gaustar_tpu_torch.cameras import stack_cameras
+from gaustar_tpu_torch.io import checkpoint as ckpt_io
+from gaustar_tpu_torch.io import dataset as ds
+from gaustar_tpu_torch.io.meshio import read_obj, write_obj
 from gaustar_tpu_torch.mesh.topology import build_topology
 from gaustar_tpu_torch.models import sugar
 from gaustar_tpu_torch.ops.losses import edge_lengths, face_areas_normals
 from gaustar_tpu_torch.ops.rasterizer import RasterConfig
+from gaustar_tpu_torch.tools import warp_mesh
 from gaustar_tpu_torch.train import mesh_update, refine, topo_detect
 from gaustar_tpu_torch.utils.general import resolve_device
+from gaustar_tpu_torch.utils.logging import MetricLogger
 
 
 @dataclasses.dataclass
@@ -62,8 +78,8 @@ class SequenceConfig:
     boundary_pad: float = 0.02
     update_cc_face_threshold: int = 80
     unbind_threshold: int = 100  # refine.py:720-737 flagged-gaussian count
-    # TSDF fusion (refined_mesh.py:312 defaults assume meter-scale rigs).
-    # fusion_simplify_face_num > 0 needs the native decimation (not ported).
+    # TSDF fusion (refined_mesh.py:312 defaults assume meter-scale rigs);
+    # fusion_simplify_face_num > 0 decimates the fused mesh before grafting.
     fusion_voxel_size: float = 0.008
     fusion_sdf_trunc: float = 0.02
     fusion_depth_trunc: float = 6.0
@@ -201,6 +217,8 @@ def refine_one_frame(
     log_fn=None,
     log_every: int = 50,
     device="cuda",
+    config_dump_path: str | None = None,
+    metrics_path: str | None = None,
 ):
     """One refined_training invocation. Returns (params, config, data, topo,
     history).
@@ -210,7 +228,10 @@ def refine_one_frame(
     sh_rest [N,K-1,3])` initializes the SH coefficients from the previous
     frame's checkpoint (refine.py:325-383); ignored if the gaussian count
     changed. `log_fn` receives refine_frame's log entries every `log_every`
-    iterations and the unbind decision."""
+    iterations, the detection's telemetry and the unbind decision;
+    `metrics_path` also appends them to a JSONL metric stream
+    (utils/logging.MetricLogger, one run_meta line per call), and
+    `config_dump_path` receives the run's config.json."""
     _check_supported(seq)
     dev = resolve_device(device)
     topo, ref_edge_len, ref_area = _mesh_stats(mesh_verts, mesh_faces)
@@ -255,6 +276,11 @@ def refine_one_frame(
         max_depth=seq.max_depth,
     )
 
+    logger = None
+    if metrics_path is not None:
+        logger = MetricLogger(metrics_path, run_meta={"frame": frame, "iters": iters})
+        log_fn = _tee(logger.as_log_fn(), log_fn)
+
     detect_fn = None
     if unbind:
         dcfg = detect_cfg or topo_detect.TopoDetectConfig(max_depth=seq.max_depth)
@@ -265,19 +291,48 @@ def refine_one_frame(
                 log_fn({"step": -1, **topo_detect.last_telemetry.as_dict()})
             return fw
 
-    params, config, history = refine.refine_frame(
-        params,
-        config,
-        data,
-        cfg,
-        raster_cfg,
-        spatial_lr_scale=seq.spatial_lr_scale,
-        detect_topo_fn=detect_fn,
-        pre_sh_dc=None if pre_sh is None else torch.as_tensor(pre_sh, dtype=torch.float32, device=dev),
-        log_every=log_every,
-        log_fn=log_fn,
-    )
+    try:
+        params, config, history = refine.refine_frame(
+            params,
+            config,
+            data,
+            cfg,
+            raster_cfg,
+            spatial_lr_scale=seq.spatial_lr_scale,
+            detect_topo_fn=detect_fn,
+            pre_sh_dc=None if pre_sh is None else torch.as_tensor(pre_sh, dtype=torch.float32, device=dev),
+            log_every=log_every,
+            log_fn=log_fn,
+            config_dump_path=config_dump_path,
+        )
+    finally:
+        if logger is not None:
+            logger.close()
     return params, config, data, topo, history
+
+
+def _tee(*fns):
+    """One log_fn that calls each of `fns` that is not None."""
+    fns = [f for f in fns if f is not None]
+
+    def fn(entry):
+        for f in fns:
+            f(entry)
+
+    return fn
+
+
+def _clock(seconds: dict, name: str, dev: torch.device, fn):
+    """fn(), with its wall seconds (the device synchronised on both ends)
+    added to seconds[name]."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+    return out
 
 
 def update_frame_topology(
@@ -309,14 +364,7 @@ def update_frame_topology(
     seconds = {}
 
     def clock(name, fn):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        out = fn()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        seconds[name] = time.perf_counter() - t0
-        return out
+        return _clock(seconds, name, dev, fn)
 
     fusion = clock("fusion", lambda: mesh_update.extract_mesh_fusion(
         params, config, data.cameras, raster_cfg,
@@ -363,6 +411,113 @@ def update_frame_topology(
         ))
     out["seconds"] = seconds
     return params, config, data, topo, out
+
+
+def run_sequence(
+    seq: SequenceConfig,
+    raster_cfg: RasterConfig | None = None,
+    detect_cfg: topo_detect.TopoDetectConfig | None = None,
+    warp_cfg: warp_mesh.WarpConfig | None = None,
+    device="cuda",
+    log_fn=None,
+    log_every: int = 50,
+):
+    """The full per-frame loop (train_seq.py:101-249), writing the file
+    contract of the module docstring under `seq.work_root`.
+
+    `log_fn` receives every frame's refine log entries (as metrics.jsonl
+    does) and the re-refine's. Returns (params, config, frames): the last
+    frame's exported model, and per frame its telemetry {"frame",
+    "cc_update_num" (the topology event's, None without one), "decode_ms"
+    (the frame's JPEG decodes, io/dataset.last_load), "warp"
+    (tools/warp_mesh.last_warp or None) and "seconds" per stage (wall,
+    device synchronised): load, refine, event, export_npz, export_ply,
+    export_obj, warp}. No frame's model is kept: each frame's files hold
+    it."""
+    _check_supported(seq)
+    dev = resolve_device(device)
+    raster_cfg = raster_cfg or RasterConfig()
+    warp_cfg = warp_cfg or warp_mesh.WarpConfig()
+    cmr = ds.load_rgb_cameras(os.path.join(seq.data_root, "rgb_cameras.npz"))
+    cams = ds.cameras_from_npz(cmr, seq.downscale, dev)
+    n_cams = len(cams)
+    iters = seq.refinement_iterations
+
+    pre_sh = None
+    prev_sh_full = None  # (sh_dc, sh_rest): the checkpoint colour prior (refine.py:325-383)
+    frames = []
+    for f_idx in range(seq.frame_0, seq.frame_end, seq.interval):
+        seconds = {}
+
+        def clock(name, fn):
+            return _clock(seconds, name, dev, fn)
+
+        fdir = os.path.join(seq.work_root, f"{f_idx:04d}")
+        os.makedirs(fdir, exist_ok=True)
+        is_first = f_idx == seq.frame_0
+        if is_first:
+            mesh_path = os.path.join(seq.data_root, seq.init_mesh_name)
+        else:
+            mesh_path = os.path.join(fdir, "coarse_mesh", "warp_smooth.obj")
+        verts, faces, colors = clock("load", lambda: read_obj(mesh_path))
+        gt_images, gt_depths = clock("load", lambda: ds.load_frame_images(
+            seq.data_root, f_idx, n_cams, seq.from_humanrf, seq.max_depth, device=dev))
+        decode_ms = ds.last_load["decode_ms"]
+
+        params, config, data, topo, _ = clock("refine", lambda: refine_one_frame(
+            seq, f_idx, verts, faces, colors, cams, gt_images, gt_depths, raster_cfg, is_first,
+            pre_sh=pre_sh, detect_cfg=detect_cfg, init_sh=prev_sh_full, log_fn=log_fn, log_every=log_every,
+            device=dev, config_dump_path=os.path.join(fdir, "config.json"),
+            metrics_path=os.path.join(fdir, "metrics.jsonl")))
+
+        # --- mesh update if unbound (train_seq.py:150-213) ---
+        event = None
+        if config.loose_bind and not seq.disable_mesh_update:
+            params, config, data, topo, event = clock("event", lambda: update_frame_topology(
+                seq, f_idx, params, config, data, topo, cams, gt_images, gt_depths, raster_cfg,
+                detect_cfg=detect_cfg, log_fn=log_fn, log_every=log_every))
+            if event.get("cc_update_num", 0) > 0:
+                um = event["updated_mesh"]
+                write_obj(os.path.join(fdir, "updated_mesh.obj"), um.verts, um.faces)
+                np.savez_compressed(os.path.join(fdir, "face_corr.npz"),
+                                    track_face_mask=event["track_face_mask"], ref_area=event["new_ref_area"])
+
+        # --- exports (refine.py:845-864, refined_mesh.py:1223-1228) ---
+        clock("export_npz", lambda: ckpt_io.save_sugar(os.path.join(fdir, f"{iters}.npz"), params, config))
+        clock("export_ply", lambda: ckpt_io.export_refined_ply(
+            os.path.join(fdir, f"{f_idx:04d}.ply"), params, config))
+        color_mesh = mesh_update.get_color_mesh(params, config)
+        vc = _face_colors_to_vertex(color_mesh)
+        clock("export_obj", lambda: write_obj(
+            os.path.join(fdir, "color_mesh.obj"), color_mesh.verts, color_mesh.faces, vc))
+
+        sh_dc = params.sh_dc.detach().cpu().numpy()
+        pre_sh = sh_dc[:, 0, :]
+        # The full-SH checkpoint prior for the next frame. After a mesh update
+        # the params live on the updated topology, the mesh the warp carries
+        # forward, so the mapping through face_corr is implicit.
+        prev_sh_full = (sh_dc, params.sh_rest.detach().cpu().numpy())
+
+        # --- warp to the next frame (train_seq.py:242-245) ---
+        warp = None
+        next_f = f_idx + seq.interval
+        if next_f < seq.frame_end:
+            def warp_to_next():
+                depths_next = ds.load_frame_depths(seq.data_root, next_f, n_cams, seq.from_humanrf, seq.max_depth)
+                flows_f, flows_b = ds.load_frame_flows(
+                    seq.data_root, f_idx, n_cams, seq.interval, shape=tuple(cmr["shape"][0]))
+                warped, _, _ = warp_mesh.warp_mesh_using_flow(
+                    color_mesh.verts, color_mesh.faces, cmr, flows_f, flows_b,
+                    list(gt_depths.cpu().numpy()), list(depths_next), warp_cfg)
+                out_dir = os.path.join(seq.work_root, f"{next_f:04d}", "coarse_mesh")
+                os.makedirs(out_dir, exist_ok=True)
+                write_obj(os.path.join(out_dir, "warp_smooth.obj"), warped, color_mesh.faces, vc)
+
+            clock("warp", warp_to_next)
+            warp = dict(warp_mesh.last_warp)
+        frames.append({"frame": f_idx, "cc_update_num": None if event is None else event.get("cc_update_num", 0),
+                       "decode_ms": decode_ms, "warp": warp, "seconds": seconds})
+    return params, config, frames
 
 
 def _face_colors_to_vertex(mesh) -> np.ndarray:

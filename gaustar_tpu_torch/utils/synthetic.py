@@ -3,6 +3,8 @@ of gaustar_tpu/utils/synthetic.py). Everything is made from a seed."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -14,6 +16,7 @@ from gaustar_tpu_torch.ops import binning
 from gaustar_tpu_torch.ops.losses import edge_lengths, face_areas_normals
 from gaustar_tpu_torch.ops.projection import TILE, preprocess
 from gaustar_tpu_torch.ops.rasterizer import RasterConfig
+from gaustar_tpu_torch.tools import geometry as geo
 from gaustar_tpu_torch.train.refine import FrameData, compute_margins, with_face_edge_tables
 from gaustar_tpu_torch.utils.general import inverse_sigmoid, resolve_device
 
@@ -169,6 +172,114 @@ def topology_scene(device="cuda", size="full", seed=0):
         depths.append(torch.where(d > 9.0, torch.full_like(d, 10.5), d))
     return {"verts": verts, "faces": faces, "colors": colors, "cams": cams,
             "gt_images": torch.stack(gts), "gt_depths": torch.stack(depths), "raster_cfg": raster_cfg}
+
+
+# The sequence's workload: a two-frame on-disk dataset in the reference's
+# layout (io/dataset.py), the sphere translated by SEQ_DX along x between the
+# frames, seen by 8 ring cameras. "full" is reference_scene's sphere at full
+# width; "small" is tests/test_sequence.py's 96-pixel dataset.
+SEQ_DX = 0.03
+SEQ_CAMS = 8
+SEQ_OPACITY = 0.98
+# The warp's settings (tools/warp_mesh.WarpConfig) for these 8 ring cameras:
+# 45 degrees apart, they see a vertex inside the 60-degree view cone
+# (cmr_view_max_cos -0.5) from at most 3 cameras, so min_observe 2 (the
+# reference's 4 assumes its ~160 cameras); the depth-edge scale 100 instead
+# of 10,000, under which the sphere's own slope over the 7-pixel window
+# reads as an edge everywhere outside a narrow facing cone.
+SEQ_WARP = {"min_observe": 2, "edge_scalar": 100.0}
+SEQ_CENTER = (0.0, 0.0, 4.0)
+SEQ_SIZES = {
+    # trainee mesh of a given radius, that radius, image width, height, focal length
+    "full": (lambda r: uv_sphere(REF_LAT, REF_LON, radius=r, center=SEQ_CENTER), 0.6, REF_W, REF_H, REF_FOCAL),
+    "small": (lambda r: icosphere(2, radius=r, center=SEQ_CENTER), 0.5, 96, 96, 120.0),
+}
+
+
+def sphere_depth(view, focal, shape, center, radius, background=999.0) -> np.ndarray:
+    """z-depth [H, W] float32 of a sphere seen by a camera (world-to-camera
+    `view`, focal length `focal`, principal point at the image centre) along
+    each pixel's ray as tools/geometry lifts pixels, `background` where the
+    ray misses it."""
+    h, w = shape
+    pix = np.stack(np.mgrid[0:h, 0:w], -1).astype(np.float64)
+    rays = geo.pixel_to_local_rays(pix, np.diag([focal, focal, 1.0]), shape)
+    o = view[:3, :3] @ np.asarray(center, np.float64) + view[:3, 3]
+    b = rays @ o
+    rr = (rays * rays).sum(-1)
+    disc = b * b - rr * (o @ o - radius * radius)
+    z = (b - np.sqrt(np.maximum(disc, 0.0))) / rr
+    return np.where(disc > 0, z, background).astype(np.float32)
+
+
+def sequence_geometry(root: str, size: str = "full", seed: int = 0) -> dict:
+    """Write the host-made part of the two-frame dataset to `root` in the
+    reference layout (gaustar_tpu/io/dataset.py:3-9): rgb_cameras.npz; per
+    frame and camera the sphere's analytic depth (sphere_depth, 999 off the
+    sphere), where the reference's datasets carry a mesh-rendered depth (the
+    full uv_sphere's facets lie within 0.05 mm of the sphere;
+    tests/test_sequence.py stores the blended 3DGS depth instead); analytic
+    flows 0 -> 1 at half resolution, stored (x, y) like RAFT's;
+    init_mesh_100k.obj with random vertex colours. Returns {"views",
+    "verts", "faces", "colors", "dx"}."""
+    from gaustar_tpu_torch.io.meshio import write_obj
+
+    make_mesh, radius, w, h, focal = SEQ_SIZES[size]
+    views = [c.view.numpy().astype(np.float64) for c in ring_cameras(SEQ_CAMS, w=w, h=h, focal=focal, device="cpu")]
+    os.makedirs(root, exist_ok=True)
+    np.savez(os.path.join(root, "rgb_cameras.npz"), intrinsics=np.stack([np.diag([focal, focal, 1.0])] * SEQ_CAMS),
+             extrinsics=np.stack(views), shape=np.stack([[h, w]] * SEQ_CAMS))
+    rng = np.random.default_rng(seed)
+    verts0, faces = make_mesh(radius)
+    colors = rng.uniform(0.2, 0.9, size=(len(verts0), 3)).astype(np.float32)
+    for fi, shift in enumerate([0.0, SEQ_DX]):
+        fdir = os.path.join(root, f"{fi:04d}")
+        for sub in ["images", "masks_humanrf", "depth_humanrf", "flow_bi"]:
+            os.makedirs(os.path.join(fdir, sub), exist_ok=True)
+        for ci, view in enumerate(views):
+            depth = sphere_depth(view, focal, (h, w), np.add(SEQ_CENTER, (shift, 0.0, 0.0)), radius)
+            np.savez(os.path.join(fdir, "depth_humanrf", f"img_{ci:04d}_depth.npz"), depth=depth)
+
+    # Analytic flow 0 -> 1 at half resolution, stored (x, y): the pixel shift
+    # of a world dx at depth ~4, d(col) = f R[0, :] . dx / z.
+    f0 = os.path.join(root, "0000", "flow_bi")
+    for ci, view in enumerate(views):
+        dlocal = view[:3, :3] @ np.array([SEQ_DX, 0, 0])
+        half = np.zeros((h // 2, w // 2, 2), np.float32)
+        half[..., 0] = focal * dlocal[0] / 4.0 / 2.0
+        half[..., 1] = focal * dlocal[1] / 4.0 / 2.0
+        np.savez(os.path.join(f0, f"{ci:04d}_f.npz"), flow=half)
+        np.savez(os.path.join(f0, f"{ci:04d}_b.npz"), flow=-half)
+    write_obj(os.path.join(root, "init_mesh_100k.obj"), verts0, faces, colors)
+    return {"views": views, "verts": verts0, "faces": faces, "colors": colors, "dx": SEQ_DX}
+
+
+@torch.no_grad()
+def sequence_dataset(root: str, size: str = "full", device="cuda", seed: int = 0) -> dict:
+    """Write the two-frame dataset to `root`, as tests/test_sequence.py
+    builds it but for its depth: sequence_geometry's files, and per frame
+    and camera the port's render of the coloured sphere (opacity
+    SEQ_OPACITY, SH degree 2) over black as JPEG (quality 95) and its mask
+    alpha > 0.5 as PNG. Returns sequence_geometry's dict and "cams"."""
+    from gaustar_tpu_torch.io import image_codec
+
+    dev = resolve_device(device)
+    info = sequence_geometry(root, size, seed)
+    _, _, w, h, focal = SEQ_SIZES[size]
+    cams = ring_cameras(SEQ_CAMS, w=w, h=h, focal=focal, device=dev)
+    rcfg = RasterConfig()
+    for fi, shift in enumerate([0.0, SEQ_DX]):
+        params, config = sugar.init_sugar(info["verts"] + np.array([shift, 0, 0], np.float32), info["faces"],
+                                          vertex_colors=info["colors"], device=dev)
+        params.densities.fill_(float(inverse_sigmoid(torch.tensor(SEQ_OPACITY, dtype=torch.float32))))
+        fdir = os.path.join(root, f"{fi:04d}")
+        for ci, cam in enumerate(cams):
+            img, aux = sugar.render(params, config, cam, bg=(0, 0, 0), raster_config=rcfg)
+            image_codec.write_jpeg(os.path.join(fdir, "images", f"img_{ci:04d}.jpg"),
+                                   (torch.clamp(img, 0, 1) * 255).to(torch.uint8), quality=95)
+            mask = ((1.0 - aux.final_T) > 0.5).to(torch.uint8) * 255
+            image_codec.write_png(os.path.join(fdir, "masks_humanrf", f"img_{ci:04d}_alpha.png"), mask)
+    return {**info, "cams": cams}
 
 
 @torch.no_grad()

@@ -1,8 +1,9 @@
 """The port's CUDA blend kernels on the card: against their plain PyTorch
 versions, through the golden fixtures, in the refine step and in the
-topology event's forward-only renders (detection, fusion). Every test
-needs a CUDA card and skips without one. JAX is not imported, so the file runs
-on a machine without it:
+topology event's forward-only renders (detection, fusion); then the
+sequence's I/O on the card's machine: the nvJPEG codec, the PNG codec and
+the native mesh library. Every test needs a CUDA card and skips without one.
+JAX is not imported, so the file runs on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py -q
 """
@@ -30,7 +31,7 @@ GOLDEN = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "golden", "*.n
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the blend kernels have no CPU mode")
+        pytest.skip("needs a CUDA card: the blend kernels and nvJPEG have no CPU mode")
     return torch.device("cuda")
 
 
@@ -227,3 +228,86 @@ def test_render_rgbd_for_fusion_on_card_matches_cpu(cuda):
     kept = (d_g > 0) & (d_c > 0)
     assert ((d_g > 0) == (d_c > 0)).float().mean() >= 0.995 and kept.float().mean() > 0.03
     torch.testing.assert_close(d_g[kept], d_c[kept], rtol=0, atol=1e-4)
+
+
+def _smooth_image(seed, h=1024, w=1600):
+    """A seeded uint8 RGB image [h, w, 3] of low-frequency sinusoids, each
+    channel about its own level (0.25, 0.5, 0.75), so a channel swap shows."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = np.empty((h, w, 3))
+    for c in range(3):
+        img[..., c] = 0.25 * (c + 1)
+        for _ in range(4):
+            fy, fx = rng.uniform(0.5, 6.0, 2) * 2 * np.pi / np.array([h, w])
+            img[..., c] += rng.uniform(0.02, 0.06) * np.sin(fy * yy + fx * xx + rng.uniform(0, 2 * np.pi))
+    return np.clip(np.rint(255 * img), 0, 255).astype(np.uint8)
+
+
+def test_nvjpeg_round_trip(cuda, tmp_path):
+    """Encode at quality 95 and decode through nvJPEG: PSNR >= 40 dB, the
+    source's size, and the source's channel order: each decoded channel's
+    mean is nearest its own source channel's (they sit 64 levels apart) and
+    within 4 levels of it (the encoder's colour conversion shifts the means
+    by up to about 2 levels on this image)."""
+    from gaustar_tpu_torch.io import image_codec
+
+    src = torch.as_tensor(_smooth_image(0), device=cuda)
+    path = str(tmp_path / "img.jpg")
+    image_codec.write_jpeg(path, src, quality=95)
+    out = image_codec.read_jpeg(path, cuda)
+    assert out.device.type == "cuda" and out.dtype == torch.uint8 and out.shape == src.shape
+    mse = float(((out.double() - src.double()) ** 2).mean())
+    psnr = 10 * np.log10(255.0**2 / max(mse, 1e-12))
+    m_out, m_src = out.double().mean(dim=(0, 1)).cpu().numpy(), src.double().mean(dim=(0, 1)).cpu().numpy()
+    print(f"nvJPEG q95 1600x1024: {os.path.getsize(path)} bytes, PSNR {psnr:.2f} dB, channel mean shifts "
+          f"{(m_out - m_src).tolist()}")
+    assert psnr >= 40.0
+    assert np.abs(m_out[:, None] - m_src[None, :]).argmin(axis=1).tolist() == [0, 1, 2]
+    assert np.abs(m_out - m_src).max() < 4.0
+
+
+def test_nvjpeg_decode_against_pil(cuda, tmp_path):
+    """Where PIL is installed: nvJPEG and libjpeg decode the same bitstream
+    within a few levels per pixel (their IDCTs and chroma paths differ)."""
+    image = pytest.importorskip("PIL.Image")
+    from gaustar_tpu_torch.io import image_codec
+
+    src = _smooth_image(1)
+    for label, write in (("nvJPEG-encoded", lambda p: image_codec.write_jpeg(p, torch.as_tensor(src, device=cuda))),
+                         ("PIL-encoded", lambda p: image.fromarray(src).save(p, quality=95))):
+        path = str(tmp_path / f"{label}.jpg")
+        write(path)
+        ours = image_codec.read_jpeg(path, cuda).cpu().numpy().astype(np.int64)
+        pil = np.asarray(image.open(path).convert("RGB"), np.int64)
+        d = np.abs(ours - pil)
+        print(f"{label}: nvJPEG vs PIL decode max {d.max()} mean {d.mean():.4f} levels, "
+              f"differing {(d > 0).mean():.4f} of values")
+        assert ours.shape == pil.shape and d.max() <= 8 and d.mean() <= 1.5
+
+
+def test_png_round_trip_exact(cuda, tmp_path):
+    from gaustar_tpu_torch.io import image_codec
+
+    rng = np.random.default_rng(2)
+    for shape in ((1024, 1600), (1024, 1600, 3), (64, 80, 4)):
+        src = torch.as_tensor(rng.integers(0, 256, size=shape, dtype=np.uint8), device=cuda)
+        path = str(tmp_path / f"img{len(shape)}.png")
+        image_codec.write_png(path, src)
+        np.testing.assert_array_equal(image_codec.read_png(path), src.cpu().numpy())
+
+
+def test_native_decimates_a_sphere(cuda):
+    """The native library builds with g++ on this machine and decimates a
+    seeded bumpy sphere (81,920 faces) to 5,000 faces that stay on it."""
+    from gaustar_tpu_torch import native
+    from gaustar_tpu_torch.mesh.primitives import icosphere
+
+    verts, faces = icosphere(6, radius=0.5)
+    rng = np.random.default_rng(3)
+    verts = verts * (1 + rng.normal(scale=1e-3, size=(len(verts), 1)))
+    dv, df = native.decimate(verts, faces, 5000)
+    sv = native.laplacian_smooth(dv, df, iterations=10)
+    r = np.linalg.norm(dv, axis=1)
+    assert 0.9 * 5000 <= len(df) <= 5000 and np.isfinite(dv).all() and np.isfinite(sv).all()
+    assert np.abs(np.median(r) - 0.5) < 2e-3 and df.min() >= 0 and df.max() < len(dv)

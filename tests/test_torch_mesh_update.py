@@ -80,11 +80,31 @@ def test_extract_mesh_fusion_matches_jax(scene):
     assert 0.4 < np.median(r) < 0.8
 
 
-def test_native_options_raise(scene):
+def test_native_options_raise(scene, monkeypatch, tmp_path):
+    """The native options (Laplacian smooth, quadric decimation) run in the
+    port as in the JAX package: the decimated fused meshes keep at most the
+    target's faces, within 5% of the JAX package's count, on the same
+    sphere: their median radii within a quarter voxel (vertex-to-vertex
+    distances are set by the 300-face spacing, not by the fit). Without a
+    compiler for the native library they raise: there is no fallback."""
+    jp, jc, jcams = scene["jax"]
     tp, tc, tcams = scene["port"]
-    for kw in (dict(smooth=True), dict(simplify_face_num=100)):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tmu.extract_mesh_fusion(tp, tc, tcams, RasterConfig(), **kw)
+    kw = dict(voxel_size=VOXEL, sdf_trunc=3 * VOXEL, use_orbit_cameras=True, max_dim=64, smooth=True,
+              simplify_face_num=300)
+    jm = jmu.extract_mesh_fusion(jp, jc, jcams, JAX_RCFG, **kw)
+    tm = tmu.extract_mesh_fusion(tp, tc, tcams, RasterConfig(), **kw)
+    assert 0.9 * 300 <= len(tm.faces) <= 300 and abs(len(tm.faces) - len(jm.faces)) <= 0.05 * len(jm.faces)
+    tr, jr = (np.linalg.norm(v - np.array([0, 0, 4.0]), axis=-1) for v in (tm.verts, jm.verts))
+    assert abs(np.median(tr) - np.median(jr)) < 0.25 * VOXEL and 0.4 < np.median(tr) < 0.8
+    np.testing.assert_array_equal(tm.face_colors, np.zeros((len(tm.faces), 3)))
+
+    monkeypatch.setattr(tmu.native, "_lib", None)
+    monkeypatch.setattr(tmu.native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(tmu.native.shutil, "which", lambda name: None)
+    for opt in (dict(smooth=True), dict(simplify_face_num=100)):
+        with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+            tmu.extract_mesh_fusion(tp, tc, tcams, RasterConfig(), **{**kw, "smooth": False,
+                                                                      "simplify_face_num": 0, **opt})
 
 
 def test_subset_sugar_faces_matches_jax(scene):
