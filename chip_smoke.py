@@ -58,10 +58,46 @@ Phases, one line of output each (or a few):
              median iteration, the warp's host stages and observed fraction,
              the exports; then render_sequence's time and peak memory. It
              fails unless every file of the contract exists, the frame-1
-             checkpoint loads equal to the final parameters, the warp moves
-             the mesh by 0.5-1.5 x SEQ_DX along x and closer to frame 1's
-             sphere, every loss is finite and each kernel launched exactly
-             as often as the two entry points imply.
+             checkpoint loads equal to the final parameters, the warp
+             observes at least SEQ_MIN_OBSERVED of the vertices, moves the
+             mesh's mean by 0.5-1.5 x SEQ_DX and its median by SEQ_MEDIAN_MOVE
+             x SEQ_DX along x and brings it closer to frame 1's sphere, every
+             loss is finite and each kernel launched exactly as often as the
+             two entry points imply;
+  9 prep     the dataset preparation at examples/refscale_field_init.py's
+             widths: the field initializer (train/init_mesh.py) on PREP_CAMS
+             ring cameras at 1600x1024 seeing the analytic sphere (RGB 0.6,
+             masks from the hit test), FieldConfig's default widths over
+             PREP_AABB, occupancy carving at PREP_OCC_RES, PREP_RAYS rays a
+             batch for PREP_ITERS iterations, the iso level relative to the
+             trained density, extraction at PREP_GRID_RES with the CC filter,
+             10 smoothing iterations and decimation to 100,000 faces; the mesh
+             depth renderer (tools/mesh_render.py) on uv_sphere(201, 250) in
+             PREP_RENDER_CAMS of the cameras against
+             utils/synthetic.sphere_depth and on the initializer's mesh in
+             every camera (silhouette IoU against the masks); RAFT
+             (tools/raft.py, random_params(0)) on a seeded 1600x1024 frame
+             and its copy rolled RAFT_SHIFT px along x through
+             compute_flow_pair (scale 0.5, RAFT_ITERS iterations, both
+             directions), the forward flow also on the CPU after 1 and
+             RAFT_ITERS iterations; fuse_gt_depths
+             of the PREP_RENDER_CAMS analytic depth maps. It prints each
+             stage's times (CUDA events on the card, the host clock for host
+             stages), the hash encoding's and the correlation lookup's own
+             times, rays/s, the occupancy fill, the density probe, the
+             mesh's faces, vertices, centroid error and radii, peak memory,
+             the renders' pairs and IoUs, and the card-vs-CPU flow
+             difference. It fails unless the initializer's mesh has 1 to
+             100,000 faces, finite vertices and its centroid within
+             PREP_MAX_CENTROID_ERR of the sphere's centre; the uv_sphere's
+             masks agree with the analytic ones at IoU >= PREP_MIN_IOU and
+             its median |depth difference| on their common pixels is under
+             PREP_MAX_DEPTH_ERR; the flows are finite of shape [512, 800, 2]
+             and the card's forward flow agrees with the CPU's (RAFT_TOL_1
+             after one iteration, RAFT_TOL_MEDIAN / RAFT_TOL_MAX after
+             RAFT_ITERS, relative to the flow's largest component); the fused vertices' median distance to the sphere is under
+             one voxel; every loss is finite and no blend kernel launched
+             (the preparation renders no gaussians).
 The last line is the JSON result {"ok": true, "device": {...}}. Any failed
 phase raises, and the script exits non-zero without that line.
 """
@@ -116,6 +152,42 @@ SEQ_FRAMES = 2
 # cameras, keep what propagation and smoothing give them (mean 0.742 dx).
 SEQ_MIN_OBSERVED = 0.3
 SEQ_MEDIAN_MOVE = (0.8, 1.2)
+# The dataset preparation (phase 9), at the widths of the JAX package's
+# reference-scale run (examples/refscale_field_init.py:36-95): 40 cameras at
+# 1600x1024 around the analytic sphere, FieldConfig's default widths, 8192
+# rays a batch, occupancy at 128. Cut: 300 training iterations of 2000, and
+# the extraction grid at InitMeshConfig's 256 where that run took 512 (the
+# marching tetrahedra run on the host). The iso level is relative to the
+# trained interior density, as there (:106-117), capped at PREP_ISO_CAP.
+PREP_CAMS = 40
+PREP_CENTER = (0.0, 0.0, 4.0)
+PREP_RADIUS = 0.6
+PREP_AABB = ((-0.8, -0.8, 3.2), (0.8, 0.8, 4.8))
+PREP_ITERS = 300
+PREP_RAYS = 8192
+PREP_OCC_RES = 128
+PREP_GRID_RES = 256
+PREP_ISO_CAP = 10.0
+PREP_FACES = 100_000
+PREP_MAX_CENTROID_ERR = 0.1  # m
+# The mesh renderer's check: uv_sphere(201, 250) (100,000 faces, chord
+# sagitta 0.047 mm at radius 0.6) in 8 of the cameras against the analytic
+# depth.
+PREP_RENDER_CAMS = 8
+PREP_MIN_IOU = 0.995
+PREP_MAX_DEPTH_ERR = 1e-4  # m, median over the common pixels
+# RAFT: random_params(0), a frame and its copy rolled RAFT_SHIFT px along x,
+# 20 iterations at half resolution. The card's forward flow against the
+# CPU's, relative to the CPU flow's largest component: after one iteration
+# within RAFT_TOL_1; after RAFT_ITERS the random weights' recurrence runs the
+# flow out to hundreds of px and amplifies float32 rounding (on an H100 3.6e-6
+# after 1 iteration, 1.5e-2 after 20; PERF.md), so there the median |diff|
+# within RAFT_TOL_MEDIAN and the max within RAFT_TOL_MAX.
+RAFT_SHIFT = 8
+RAFT_ITERS = 20
+RAFT_TOL_1 = 2e-5
+RAFT_TOL_MEDIAN = 1e-3
+RAFT_TOL_MAX = 5e-2
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -594,6 +666,176 @@ def seq_phase(torch, bc, root):
     return launches
 
 
+def prep_phase(torch, bc):
+    """Phase 9: the dataset preparation at full width. Returns {kernel:
+    launches} of the phase (none expected)."""
+    import dataclasses
+
+    from gaustar_tpu_torch.mesh.primitives import uv_sphere
+    from gaustar_tpu_torch.models import neural_field as nf
+    from gaustar_tpu_torch.tools import depth_fusion, mesh_render, raft
+    from gaustar_tpu_torch.tools.geometry import resize_linear
+    from gaustar_tpu_torch.train import init_mesh
+    from gaustar_tpu_torch.utils.general import device_ms
+    from gaustar_tpu_torch.utils.synthetic import REF_FOCAL, REF_H, REF_W, ring_cameras, sphere_depth
+
+    center = np.asarray(PREP_CENTER)
+    bc.reset_launch_counts()
+    t0 = time.perf_counter()
+    cams = ring_cameras(PREP_CAMS, w=REF_W, h=REF_H, focal=REF_FOCAL, device="cuda")
+    views = [c.view.cpu().numpy().astype(np.float64) for c in cams]
+    depths = np.stack([sphere_depth(v, REF_FOCAL, (REF_H, REF_W), PREP_CENTER, PREP_RADIUS) for v in views])
+    masks = (depths < mesh_render.INVALID_DEPTH - 1.0).astype(np.float32)
+    images = np.where(masks[..., None] > 0, np.float32(0.6), np.float32(0.0))
+    log("prep", f"scene: {PREP_CAMS} cameras {REF_W}x{REF_H}, sphere r {PREP_RADIUS} at {PREP_CENTER}; "
+                f"views and masks in {time.perf_counter() - t0:.1f} s")
+
+    # The field initializer.
+    fcfg = nf.FieldConfig(aabb_min=PREP_AABB[0], aabb_max=PREP_AABB[1])
+    mcfg = init_mesh.InitMeshConfig(iterations=PREP_ITERS, rays_per_batch=PREP_RAYS, occupancy_res=PREP_OCC_RES,
+                                    grid_res=PREP_GRID_RES, target_faces=PREP_FACES, iso_level=PREP_ISO_CAP)
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    field, fcfg, occ = init_mesh.train_field(cams, images, masks, mcfg, fcfg, log_fn=losses.append)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    peak_train = torch.cuda.max_memory_allocated() / 2**30
+    tr = init_mesh.last_train
+    step = statistics.median(tr["step_ms"][WARMUP_STEPS:])
+    probe = np.stack([center, center + [0.5 * PREP_RADIUS, 0, 0], center + [PREP_RADIUS, 0, 0],
+                      center + [1.5 * PREP_RADIUS, 0, 0]]).astype(np.float32)
+    with torch.no_grad():
+        dens = nf.query_density(field, torch.as_tensor(probe, device="cuda"), fcfg)[0].cpu().numpy()
+    iso = float(np.clip(0.25 * dens[1], 1.0, PREP_ISO_CAP))
+    log("prep", f"field: {fcfg.n_levels} levels x 2^{int(np.log2(fcfg.table_size))} x {fcfg.n_features}, hidden "
+                f"{fcfg.hidden}, {fcfg.n_samples} samples; train {PREP_ITERS} its x {tr['rays']} rays: wall "
+                f"{t_train:.1f} s, occupancy carve {tr['occupancy_ms']:.1f} ms (res {PREP_OCC_RES}, fill "
+                f"{100 * float(occ.mean()):.2f}%), median step {step:.2f} ms (CUDA events, steps "
+                f"{WARMUP_STEPS + 1}-{PREP_ITERS}), {tr['rays'] / step * 1e3:.0f} rays/s, "
+                f"{tr['rays'] * fcfg.n_samples / step * 1e3:.3e} samples/s; peak mem {peak_train:.2f} GiB; "
+                f"losses {[round(e['loss'], 5) for e in losses]}; density probe centre/inside/surface/outside "
+                f"{[round(float(x), 3) for x in dens]}, iso {iso:.3f}")
+    if len(losses) != PREP_ITERS // 200 or not all(np.isfinite(e["loss"]) for e in losses):
+        fail(f"non-finite field loss: {losses}")
+    # The hash encoding alone at a training batch's size (a kernel candidate).
+    pts01 = torch.rand((tr["rays"] * fcfg.n_samples, 3), generator=torch.Generator(device="cuda").manual_seed(1),
+                       device="cuda")
+    with torch.no_grad():
+        enc_ms = cuda_ms(torch, lambda: nf.hash_encode(field.tables, pts01, fcfg), iters=5)
+    enc_bwd_ms = cuda_ms(torch, lambda: nf.hash_encode(field.tables, pts01, fcfg).sum().backward(), iters=5)
+    log("prep", f"hash_encode of {len(pts01)} points ({fcfg.n_levels} levels x 8 corners): forward {enc_ms:.2f} ms, "
+                f"forward + backward {enc_bwd_ms:.2f} ms (CUDA events)")
+    del pts01
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh = init_mesh.extract_init_mesh(field, fcfg, dataclasses.replace(mcfg, iso_level=iso), occupancy=occ)
+    t_ext = time.perf_counter() - t0
+    ex = init_mesh.last_extract
+    c = mesh.verts.mean(axis=0) if len(mesh.verts) else np.full(3, np.nan)
+    r = np.linalg.norm(mesh.verts - c, axis=1) if len(mesh.verts) else np.zeros(1)
+    cerr = float(np.linalg.norm(c - center))
+    log("prep", f"extract {PREP_GRID_RES}^3: wall {t_ext:.1f} s; density grid {ex['grid_ms']:.1f} device ms; host ms "
+                f"tets {ex.get('tets_ms', 0):.1f}, cc filter {ex.get('cc_filter_ms', 0):.1f}, smooth "
+                f"{ex.get('smooth_ms', 0):.1f}, decimate {ex.get('decimate_ms', 0):.1f}; {len(mesh.faces)} faces, "
+                f"{len(mesh.verts)} vertices; centroid error {cerr:.4f} m, radius mean {r.mean():.4f} std "
+                f"{r.std():.4f} m (true {PREP_RADIUS}); peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not 0 < len(mesh.faces) <= PREP_FACES:
+        fail(f"the initial mesh has {len(mesh.faces)} faces")
+    if not np.isfinite(mesh.verts).all():
+        fail("the initial mesh has non-finite vertices")
+    if not cerr < PREP_MAX_CENTROID_ERR:
+        fail(f"the initial mesh's centroid is {cerr:.4f} m from the sphere's centre")
+    del field
+
+    # The mesh depth renderer: the uv_sphere against the analytic depth, then
+    # the initializer's mesh in every camera.
+    sv, sf = uv_sphere(201, 250, radius=PREP_RADIUS, center=PREP_CENTER)
+    picks = list(range(0, PREP_CAMS, PREP_CAMS // PREP_RENDER_CAMS))[:PREP_RENDER_CAMS]
+    stats = []
+    for ci in picks:
+        (depth, mask, pairs), ms = device_ms(torch.device("cuda"), lambda: mesh_render.render_mesh_depth(sv, sf, cams[ci]))
+        ref_mask = masks[ci] > 0
+        both = mask & ref_mask
+        stats.append((ci, pairs, ms, float(both.sum() / (mask | ref_mask).sum()),
+                      float(np.median(np.abs(depth[both] - depths[ci][both])))))
+    log("prep", f"render_mesh_depth uv_sphere(201, 250) ({len(sf)} faces) per camera (index, pairs, ms incl. the "
+                f"host copy, mask IoU, median |depth - analytic| m): {[tuple(round(x, 6) for x in t) for t in stats]}")
+    worst_iou, worst_err = min(t[3] for t in stats), max(t[4] for t in stats)
+    if not worst_iou >= PREP_MIN_IOU or not worst_err < PREP_MAX_DEPTH_ERR:
+        fail(f"the mesh renderer misses the analytic sphere: IoU {worst_iou:.5f}, median error {worst_err:.3e} m")
+    ious, ms_all = [], []
+    for ci in range(PREP_CAMS):
+        (_, mask, _), ms = device_ms(torch.device("cuda"), lambda: mesh_render.render_mesh_depth(mesh.verts, mesh.faces,
+                                                                                                  cams[ci]))
+        ref_mask = masks[ci] > 0
+        ious.append(round(float((mask & ref_mask).sum() / (mask | ref_mask).sum()), 4))
+        ms_all.append(ms)
+    log("prep", f"initial mesh silhouettes, IoU against the masks per camera: {ious}; median render "
+                f"{statistics.median(ms_all):.2f} ms")
+
+    # RAFT on the card, the forward flow also on the CPU.
+    rng = np.random.default_rng(0)
+    img1 = rng.integers(0, 256, (REF_H, REF_W, 3)).astype(np.uint8)
+    img2 = np.roll(img1, RAFT_SHIFT, axis=1)
+    params = raft.random_params(0)
+    model = raft.make_raft(params, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    raft.compute_flow_pair(model, img1, img2, iters=RAFT_ITERS)  # warm-up: cuDNN's algorithm choice
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd, bwd, pad = raft.compute_flow_pair(model, img1, img2, iters=RAFT_ITERS)
+    t_pair = 1e3 * (time.perf_counter() - t0)
+    hs, ws = REF_H // 2, REF_W // 2
+    t1 = torch.as_tensor(resize_linear(img1, hs, ws), device="cuda").permute(2, 0, 1)[None].float()
+    t2 = torch.as_tensor(resize_linear(img2, hs, ws), device="cuda").permute(2, 0, 1)[None].float()
+    dir_ms = cuda_ms(torch, lambda: raft.raft_forward(model, t1, t2, RAFT_ITERS), iters=3, warmup=1)
+    peak_raft = torch.cuda.max_memory_allocated() / 2**30
+    # The correlation lookup alone, as one update iteration calls it (a kernel candidate).
+    with torch.no_grad(), raft._float32():
+        pyramid = raft.build_corr_pyramid(model.fnet(2 * (t1 / 255.0) - 1), model.fnet(2 * (t2 / 255.0) - 1))
+        coords = raft.coords_grid(1, hs // 8, ws // 8, "cuda") + 3.5
+        corr_ms = cuda_ms(torch, lambda: raft.corr_lookup(pyramid, coords), iters=10)
+    del pyramid
+    cpu_model = raft.make_raft(params, "cpu")
+    t0 = time.perf_counter()
+    cpu_fwd = raft.raft_forward(cpu_model, t1.cpu(), t2.cpu(), RAFT_ITERS)[0].permute(1, 2, 0).numpy()
+    t_cpu = time.perf_counter() - t0
+    one = [raft.raft_forward(m, a, b, 1)[0].cpu().numpy() for m, a, b in ((model, t1, t2), (cpu_model, t1.cpu(), t2.cpu()))]
+    rel_1 = float(np.abs(one[0] - one[1]).max() / np.abs(one[1]).max())
+    scale = float(np.abs(cpu_fwd).max())
+    rel_max, rel_median = (float(f(np.abs(fwd - cpu_fwd)) / scale) for f in (np.max, np.median))
+    log("prep", f"RAFT random_params(0), {REF_W}x{REF_H} uint8 frames rolled {RAFT_SHIFT} px, scale 0.5, {RAFT_ITERS} "
+                f"iterations: compute_flow_pair (both directions, resize and copies) {t_pair:.1f} ms wall; "
+                f"raft_forward {dir_ms:.2f} ms per direction (CUDA events), of which corr_lookup "
+                f"{corr_ms:.3f} ms a call x {RAFT_ITERS}; peak mem {peak_raft:.2f} GiB; flow "
+                f"shape {list(fwd.shape)}, pad {pad}, forward mean {fwd.reshape(-1, 2).mean(0).tolist()}, largest "
+                f"|component| {scale:.3f} px; card vs CPU forward flow / largest component: 1 iteration max "
+                f"{rel_1:.3e} (tolerance {RAFT_TOL_1}), {RAFT_ITERS} iterations max {rel_max:.3e} ({RAFT_TOL_MAX}) "
+                f"median {rel_median:.3e} ({RAFT_TOL_MEDIAN}), max |diff| {rel_max * scale:.4f} px; CPU {t_cpu:.1f} s")
+    if fwd.shape != (hs, ws, 2) or bwd.shape != (hs, ws, 2) or not (np.isfinite(fwd).all() and np.isfinite(bwd).all()):
+        fail(f"RAFT flows: shapes {fwd.shape} {bwd.shape}, finite {np.isfinite(fwd).all()} {np.isfinite(bwd).all()}")
+    if not (rel_1 <= RAFT_TOL_1 and rel_max <= RAFT_TOL_MAX and rel_median <= RAFT_TOL_MEDIAN):
+        fail("RAFT's flow on the card differs from the CPU's")
+
+    # GT depth fusion of the analytic depth maps.
+    cmr = {"intrinsics": np.stack([np.diag([REF_FOCAL, REF_FOCAL, 1.0])] * len(picks)),
+           "extrinsics": np.stack([views[ci] for ci in picks])}
+    fused, fus_ms = device_ms(torch.device("cuda"), lambda: depth_fusion.fuse_gt_depths(depths[picks], cmr, device="cuda"))
+    dist = float(np.median(np.abs(np.linalg.norm(fused.verts - center, axis=1) - PREP_RADIUS)))
+    log("prep", f"fuse_gt_depths of {len(picks)} analytic depth maps: {fus_ms:.1f} ms (CUDA events around the call, "
+                f"host extraction included); {len(fused.faces)} faces; median |r - {PREP_RADIUS}| {1e3 * dist:.3f} mm "
+                f"(voxel {1e3 * FUSION_VOXEL} mm)")
+    if not len(fused.faces) or not dist < FUSION_VOXEL:
+        fail(f"the fused mesh left the sphere: median distance {dist:.4f} m")
+    launches = dict(bc.LAUNCHES)
+    if any(launches.values()):
+        fail(f"the preparation launched blend kernels: {launches}")
+    return launches
+
+
 def kernel_phases(torch, bc, t_start):
     """Phases 3-6: each kernel against its plain version, the refine step at
     full width, the kernels' times. Returns the kernels line's entries."""
@@ -780,9 +1022,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_seq_") as root:
         seq_launches = seq_phase(torch, bc, root)
     log("seq", f"phase wall {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    # 9 the dataset preparation
+    t0 = time.perf_counter()
+    prep_launches = prep_phase(torch, bc)
+    log("prep", f"phase wall {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         k["launches_topo"] = topo_launches[k["name"]]
         k["launches_seq"] = seq_launches[k["name"]]
+        k["launches_prep"] = prep_launches.get(k["name"], 0)
     kernels[0]["max_abs_err_fwd_only"] = fwd_only_err
     log("done", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

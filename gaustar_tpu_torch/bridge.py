@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from gaustar_tpu_torch.cameras import Camera
-from gaustar_tpu_torch.models import sugar
+from gaustar_tpu_torch.models import neural_field, sugar
 from gaustar_tpu_torch.ops import segment
 from gaustar_tpu_torch.train.refine import FrameData
 from gaustar_tpu_torch.utils.general import resolve_device
@@ -93,3 +93,30 @@ def config_from_fields(cls, fields: dict):
     if unknown:
         raise ValueError(f"{cls.__name__} has no fields {sorted(unknown)}")
     return cls(**fields)
+
+
+def field_params_from_numpy(arrays: dict, device="cuda"):
+    """The port's field from {field: array} of the JAX package's
+    HashGridParams (tables [L, F, T]) or Field4DParams (tables [4, L, F, T],
+    vectors): the tables transposed to the port's [.., T, F] rows, the MLP
+    dicts {"l0": {"w", "b"}, ...} in layer order."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a, np.float32), device=dev)
+
+    def layers(mlp):
+        return [(t(mlp[f"l{i}"]["w"]), t(mlp[f"l{i}"]["b"])) for i in range(len(mlp))]
+
+    tables = t(np.swapaxes(np.asarray(arrays["tables"]), -1, -2))
+    sigma, color = layers(arrays["mlp_sigma"]), layers(arrays["mlp_color"])
+    if "vectors" in arrays:
+        return neural_field.Field4D(tables, t(arrays["vectors"]), sigma, color)
+    return neural_field.HashGridField(tables, sigma, color)
+
+
+def raft_state_dict_from_numpy(arrays: dict, device="cuda") -> dict:
+    """A RAFT state dict from the JAX package's parameter dict, whose keys
+    are already the torch names (tools/raft.py)."""
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(np.array(v, np.float32), device=dev) for k, v in arrays.items()}

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from gaustar_tpu_torch.io import ply
+from gaustar_tpu_torch.utils.general import resolve_device
 
 
 @dataclasses.dataclass
@@ -57,8 +58,9 @@ def save_ply(p: GaussianParams, path: str):
     ply.write_ply(path, props)
 
 
-def load_ply(path: str, device="cpu") -> GaussianParams:
+def load_ply(path: str, device="cuda") -> GaussianParams:
     """GaussianParams of float32 tensors on `device` from a 3DGS .ply."""
+    dev = resolve_device(device)
     v = ply.read_ply(path)["vertex"]
     n = len(v["x"])
     xyz = np.stack([v["x"], v["y"], v["z"]], axis=1).astype(np.float32)
@@ -73,7 +75,7 @@ def load_ply(path: str, device="cpu") -> GaussianParams:
     rotation = np.stack([v[f"rot_{i}"] for i in range(4)], axis=1).astype(np.float32)
 
     def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
     return GaussianParams(
         xyz=t(xyz),

@@ -7,7 +7,8 @@ interpolate_in_voxel, remove_outlier) become padded-adjacency array ops with
 the same results. The JAX package's two OpenCV calls are replaced:
 `get_depth_edge`'s cv2.blur by a reflect-101 box mean summed in float64 as
 OpenCV sums float images, and `pad_and_resize_flow`'s cv2.resize
-(INTER_NEAREST) by OpenCV's index rule.
+(INTER_NEAREST) by OpenCV's index rule. `resize_linear` is RAFT's
+cv2.resize (INTER_LINEAR, tools/raft.py), OpenCV's fixed-point rule on uint8.
 
 Conventions (reference): pixels are (row, col); `intr` is a 3x3 K with principal
 point at the image center (images are pre-shifted, cmr_convert.py:26); `extr` is
@@ -131,6 +132,47 @@ def resize_nearest(img: np.ndarray, height: int, width: int) -> np.ndarray:
     ys = np.minimum(np.floor(np.arange(height) * (1.0 / (height / in_h))).astype(np.int64), in_h - 1)
     xs = np.minimum(np.floor(np.arange(width) * (1.0 / (width / in_w))).astype(np.int64), in_w - 1)
     return img[ys[:, None], xs[None, :]]
+
+
+def _linear_taps(src: int, dst: int):
+    """OpenCV's INTER_LINEAR taps along one axis: the first source index of
+    each output, its neighbour, and the float32 weight of the neighbour.
+    Half-pixel centres, f = (i + 0.5) s - 0.5 with s = 1 / (dst / src) in
+    float64 rounded to float32; outside the source the edge sample takes all
+    the weight."""
+    f = ((np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5).astype(np.float32)
+    i0 = np.floor(f).astype(np.int64)
+    f = (f - i0).astype(np.float32)
+    edge = (i0 < 0) | (i0 >= src - 1)
+    i0 = np.clip(i0, 0, src - 1)
+    f[edge] = 0.0
+    return i0, np.minimum(i0 + 1, src - 1), f
+
+
+def resize_linear(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """cv2.resize(img, (width, height)) with INTER_LINEAR. uint8 follows
+    OpenCV's fixed-point rule exactly: weights rounded to 11 bits, the
+    horizontal pass in integers, the vertical one as its vectorized code
+    does, ((r0 >> 4) b0 >> 16) + ((r1 >> 4) b1 >> 16) rounded off by 2 bits
+    (an exact halving reduces to OpenCV's 2x2 area mean, the same values).
+    Equal to cv2.resize for downscaling, which is RAFT's use; an upscale's
+    first and last rows can differ by one level. Float images blend with the
+    float32 weights."""
+    in_h, in_w = img.shape[:2]
+    x0, x1, fx = _linear_taps(in_w, width)
+    y0, y1, fy = _linear_taps(in_h, height)
+    col = (slice(None),) + (None,) * (img.ndim - 2)  # a weight per output column
+    row = (slice(None),) + (None,) * (img.ndim - 1)  # a weight per output row
+    wx0, wy0 = np.float32(1) - fx, np.float32(1) - fy
+    if img.dtype == np.uint8:
+        ax0, ax1, by0, by1 = (np.rint(a * np.float32(2048)).astype(np.int64) for a in (wx0, fx, wy0, fy))
+        src = img.astype(np.int64)
+        rows = src[:, x0] * ax0[col] + src[:, x1] * ax1[col]
+        out = ((((rows[y0] >> 4) * by0[row]) >> 16) + (((rows[y1] >> 4) * by1[row]) >> 16) + 2) >> 2
+        return np.clip(out, 0, 255).astype(np.uint8)
+    src = img.astype(np.float32)
+    rows = src[:, x0] * wx0[col] + src[:, x1] * fx[col]
+    return (rows[y0] * wy0[row] + rows[y1] * fy[row]).astype(img.dtype)
 
 
 def pad_and_resize_flow(flow, pad, shape):

@@ -35,5 +35,7 @@ def test_port_has_modules():
     for required in ("cameras.py", "bridge.py", "ops/blend_cuda.py", "ops/binning.py",
                      "models/sugar.py", "train/refine.py", "train/optimizer.py",
                      "ops/image.py", "tools/geometry.py", "train/topo_detect.py", "mesh/tsdf.py",
-                     "mesh/surgery.py", "train/mesh_update.py", "train/sequence.py"):
+                     "mesh/surgery.py", "train/mesh_update.py", "train/sequence.py",
+                     "models/neural_field.py", "train/init_mesh.py", "tools/mesh_render.py", "tools/raft.py",
+                     "tools/depth_fusion.py"):
         assert required in names

@@ -143,6 +143,25 @@ def test_export_refined_ply_matches_jax(tmp_path, loose):
             np.testing.assert_allclose(b[k], a[k], atol=1e-4 if k.startswith("rot") else 1e-5, err_msg=k)
 
 
+def test_load_ply_reads_the_export_and_defaults_to_the_card(tmp_path):
+    """models/gaussians.load_ply of the JAX package's 3DGS .ply: every field
+    equal to the JAX loader's on device="cpu"; without a card the default
+    device raises."""
+    from gaustar_tpu.models import gaussians as jgaussians
+    from gaustar_tpu_torch.models import gaussians as tgaussians
+
+    jp, jc, _, _ = _model(seed=4, loose=False)
+    path = str(tmp_path / "j.ply")
+    jck.export_refined_ply(path, jp, jc)
+    want = jgaussians.load_ply(path)
+    got = tgaussians.load_ply(path, device="cpu")
+    for f in dataclasses.fields(got):
+        np.testing.assert_array_equal(getattr(got, f.name).numpy(), np.asarray(getattr(want, f.name)), err_msg=f.name)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tgaussians.load_ply(path)
+
+
 def test_refine_state_round_trip(tmp_path):
     _, _, tp, _ = _model(seed=4)
     st = adam_init(tp)
