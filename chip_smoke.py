@@ -97,7 +97,30 @@ Phases, one line of output each (or a few):
              after one iteration, RAFT_TOL_MEDIAN / RAFT_TOL_MAX after
              RAFT_ITERS, relative to the flow's largest component); the fused vertices' median distance to the sphere is under
              one voxel; every loss is finite and no blend kernel launched
-             (the preparation renders no gaussians).
+             (the preparation renders no gaussians);
+ 10 gs       vanilla 3DGS at full width: the reference scene's 600,000 SuGaR
+             centres moved by GS_NOISE m of seeded noise, grey, through
+             create_from_pcd (dist2_avg3 at N = 600,000: its time, peak
+             memory, and its relative error against exact |q - p|^2 on
+             GS_KNN_SAMPLE points); train_gaussians for GS_ITERS iterations
+             against GT renders of the SuGaR model in GS_CAMS ring cameras at
+             1600x1024 (densify events at 199-599, one opacity reset), with
+             the median iteration, each event's counts and time, the gaussian
+             counts and peak memory; evaluate_pairs of the 8 views before and
+             after training (PSNR, SSIM, and LPIPS of seeded synthetic
+             weights that lpips_convert packed, printed as lpips_synthetic);
+             the renders and GTs as 8-bit PNGs through evaluate_dirs, which
+             must give the 8-bit images' PSNR / SSIM; the border-face
+             postprocess on the SuGaR sphere with a cap (centroid z <
+             GS_CAP_Z) cut off; refine_frame for GS_KNOB_ITERS iterations
+             with the Laplacian and area_reg knobs on; and one render_composite
+             of the model and a moved copy with half its gaussians masked. It
+             fails unless every loss is finite, dist2_avg3 is finite and
+             positive, every densify event's counts add up (the survivors
+             are the count before less the pruned rows, and n_active =
+             survivors + clones + 2 splits), the PSNR after training exceeds the initial
+             one by GS_MIN_PSNR_GAIN dB, the knobs' terms are in the loss dict
+             and each kernel launched exactly as often as the phase implies.
 The last line is the JSON result {"ok": true, "device": {...}}. Any failed
 phase raises, and the script exits non-zero without that line.
 """
@@ -188,6 +211,25 @@ RAFT_ITERS = 20
 RAFT_TOL_1 = 2e-5
 RAFT_TOL_MEDIAN = 1e-3
 RAFT_TOL_MAX = 5e-2
+# Vanilla 3DGS (phase 10): train_gaussians on the reference scene's 600,000
+# SuGaR centres (moved by GS_NOISE m of seeded noise, grey) against GT renders
+# of the SuGaR model in GS_CAMS ring cameras at 1600x1024. Densify events at
+# 199, 299, 399, 499 and 599. The JAX loop (and the port) resets opacities at
+# every multiple of the interval, iteration 600 included, so the interval is
+# 350, not 300: one reset, at 350, and the evaluation sees trained opacities.
+# The PSNR after training must exceed the initial one by GS_MIN_PSNR_GAIN dB:
+# half the 20.2 dB gain measured on an NVIDIA H100 80GB HBM3 (23.49 -> 43.72 dB,
+# PERF.md).
+GS_ITERS = 600
+GS_CAMS = 8
+GS_NOISE = 1e-3
+GS_SH_WARMUP = 200
+GS_DENSIFY = (100, 600, 100)  # from, until, interval
+GS_OPACITY_RESET = 350
+GS_MIN_PSNR_GAIN = 10.0
+GS_KNN_SAMPLE = 10_000
+GS_CAP_Z = 3.55  # faces with a centroid below it are cut off the sphere (z 3.4-4.6)
+GS_KNOB_ITERS = 5
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -676,7 +718,7 @@ def prep_phase(torch, bc):
     from gaustar_tpu_torch.tools import depth_fusion, mesh_render, raft
     from gaustar_tpu_torch.tools.geometry import resize_linear
     from gaustar_tpu_torch.train import init_mesh
-    from gaustar_tpu_torch.utils.general import device_ms
+    from gaustar_tpu_torch.utils.general import device_ms, full_float32
     from gaustar_tpu_torch.utils.synthetic import REF_FOCAL, REF_H, REF_W, ring_cameras, sphere_depth
 
     center = np.asarray(PREP_CENTER)
@@ -794,7 +836,7 @@ def prep_phase(torch, bc):
     dir_ms = cuda_ms(torch, lambda: raft.raft_forward(model, t1, t2, RAFT_ITERS), iters=3, warmup=1)
     peak_raft = torch.cuda.max_memory_allocated() / 2**30
     # The correlation lookup alone, as one update iteration calls it (a kernel candidate).
-    with torch.no_grad(), raft._float32():
+    with torch.no_grad(), full_float32():
         pyramid = raft.build_corr_pyramid(model.fnet(2 * (t1 / 255.0) - 1), model.fnet(2 * (t2 / 255.0) - 1))
         coords = raft.coords_grid(1, hs // 8, ws // 8, "cuda") + 3.5
         corr_ms = cuda_ms(torch, lambda: raft.corr_lookup(pyramid, coords), iters=10)
@@ -833,6 +875,206 @@ def prep_phase(torch, bc):
     launches = dict(bc.LAUNCHES)
     if any(launches.values()):
         fail(f"the preparation launched blend kernels: {launches}")
+    return launches
+
+
+def synthetic_lpips(root):
+    """LPIPSVgg on the card with seeded synthetic VGG16 and linear weights,
+    packed by lpips_convert.convert (the repository holds no real ones)."""
+    from gaustar_tpu_torch.eval import lpips_convert
+    from gaustar_tpu_torch.eval.metrics import LPIPSVgg
+    from gaustar_tpu_torch.utils.synthetic import lpips_checkpoints
+
+    packed = os.path.join(root, "packed.pt")
+    lpips_convert.convert(*lpips_checkpoints(root), packed)
+    return LPIPSVgg(packed, device="cuda")
+
+
+def knn_exact_dist2(torch, pts, idx, chunk=128):
+    """Mean squared distance of pts[idx] to its 3 nearest other points, from
+    coordinate differences (no expansion)."""
+    out = []
+    for s in range(0, len(idx), chunk):
+        q = pts[idx[s:s + chunk]]
+        d = ((q[:, None, :] - pts[None]) ** 2).sum(-1)
+        out.append(torch.topk(d, 4, dim=1, largest=False).values[:, 1:].mean(-1))
+    return torch.cat(out)
+
+
+def gs_phase(torch, bc, root):
+    """Phase 10: vanilla 3DGS at full width (KNN init, train_gaussians with
+    densify events and an opacity reset, evaluation), the border-face
+    postprocess, the refine knobs and a composite render. Returns {kernel:
+    launches} of the phase."""
+    from gaustar_tpu_torch.cameras import stack_cameras
+    from gaustar_tpu_torch.eval import metrics
+    from gaustar_tpu_torch.io.image_codec import write_png
+    from gaustar_tpu_torch.models import compositor, gaussians, sugar
+    from gaustar_tpu_torch.ops.knn import dist2_avg3
+    from gaustar_tpu_torch.train import mesh_update, refine, train_gaussians
+    from gaustar_tpu_torch.train.optimizer import spatial_lr_scale_from_cameras
+    from gaustar_tpu_torch.utils.general import device_ms
+    from gaustar_tpu_torch.utils.synthetic import REF_FOCAL, REF_H, REF_W, reference_scene, ring_cameras
+
+    dev = torch.device("cuda")
+    bc.reset_launch_counts()
+    t_phase = time.perf_counter()
+    params, config, data, raster_cfg = reference_scene("cuda")
+    cams = ring_cameras(GS_CAMS, w=REF_W, h=REF_H, focal=REF_FOCAL, device="cuda")
+    batch = stack_cameras(cams)
+    with torch.no_grad():
+        gt = torch.stack([sugar.render(params, config, c, raster_config=raster_cfg)[0] for c in cams])
+        centres = sugar.gaussian_centers(params, config)
+    n0 = centres.shape[0]
+    rng = np.random.default_rng(0)
+    pts = centres + torch.as_tensor(rng.normal(scale=GS_NOISE, size=(n0, 3)).astype(np.float32), device=dev)
+    grey = torch.full((n0, 3), 0.5, device=dev)
+    log("gs", f"scene: {n0} SuGaR centres + {GS_NOISE} m noise, grey; GT of the SuGaR model in {GS_CAMS} cameras "
+              f"{REF_W}x{REF_H}")
+
+    # KNN init at full width, and dist2_avg3's error against exact distances.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p0, init_ms = device_ms(dev, lambda: gaussians.create_from_pcd(pts, grey, sh_degree=2, device="cuda"))
+    peak_init = torch.cuda.max_memory_allocated() / 2**30
+    d2, knn_ms = device_ms(dev, lambda: dist2_avg3(pts))
+    sample = torch.as_tensor(rng.choice(n0, GS_KNN_SAMPLE, replace=False), device=dev)
+    exact = knn_exact_dist2(torch, pts, sample)
+    rel = ((d2[sample] - exact).abs() / exact).cpu().numpy()
+    log("gs", f"create_from_pcd of {n0} points: {init_ms:.1f} ms (CUDA events; dist2_avg3 alone {knn_ms:.1f} ms, "
+              f"chunk 1024), peak mem {peak_init:.2f} GiB; dist2_avg3 min {float(d2.min()):.3e} median "
+              f"{float(d2.median()):.3e} max {float(d2.max()):.3e}; against exact |q - p|^2 on {GS_KNN_SAMPLE} "
+              f"points: relative error median {float(np.median(rel)):.4f} max {float(rel.max()):.4f}")
+    if not (torch.isfinite(d2).all() and (d2 > 0).all()):
+        fail("dist2_avg3 is not finite and positive")
+
+    # Training.
+    cfg = train_gaussians.GSTrainConfig(
+        iterations=GS_ITERS, sh_degree=2, sh_warmup_every=GS_SH_WARMUP, densify_from_iter=GS_DENSIFY[0],
+        densify_until_iter=GS_DENSIFY[1], densification_interval=GS_DENSIFY[2],
+        opacity_reset_interval=GS_OPACITY_RESET)
+    lr_scale = spatial_lr_scale_from_cameras(torch.stack([c.camera_center for c in cams]))
+    events = []
+
+    def on_log(entry):
+        events.append(entry)
+        if "loss" in entry and not np.isfinite(entry["loss"]):
+            fail(f"non-finite loss at iteration {entry['iteration']}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trained, history = train_gaussians.train_gaussians(p0, batch, gt, cfg, raster_cfg, spatial_lr_scale=lr_scale,
+                                                       log_fn=on_log)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    peak_train = torch.cuda.max_memory_allocated() / 2**30
+    tr = train_gaussians.last_train
+    step = statistics.median(tr["step_ms"][WARMUP_STEPS:])
+    dens = [e for e in events if e.get("event") == "densify"]
+    log("gs", f"train_gaussians {GS_ITERS} its, spatial_lr_scale {lr_scale:.4f}: wall {t_train:.1f} s, median "
+              f"iteration {step:.2f} ms (CUDA events), peak mem {peak_train:.2f} GiB; gaussians {n0} -> "
+              f"{gaussians.n_points(trained)}; losses {[round(h['loss'], 5) for h in history]}")
+    log("gs", "densify events (iteration, n_pruned, n_kept, n_clone, n_split, n_active): "
+              f"{[tuple(e[k] for k in ('iteration', 'n_pruned', 'n_kept', 'n_clone', 'n_split', 'n_active')) for e in dens]}, "
+              f"ms {[round(x, 1) for x in tr['densify_ms']]}")
+    expected_its = [it for it in range(1, GS_ITERS + 1)
+                    if GS_DENSIFY[0] < it < GS_DENSIFY[1] and (it + 1) % GS_DENSIFY[2] == 0]
+    if [e["iteration"] for e in dens] != expected_its:
+        fail(f"densify events at {[e['iteration'] for e in dens]}, expected {expected_its}")
+    n_prev = n0
+    for e in dens:
+        if not (e["n_kept"] == n_prev - e["n_pruned"] and e["n_active"] == e["n_kept"] + e["n_clone"] + 2 * e["n_split"]):
+            fail(f"densify at {e['iteration']}: counts do not add up ({e}, {n_prev} before)")
+        n_prev = e["n_active"]
+    if n_prev != gaussians.n_points(trained) or len(history) != GS_ITERS // 100:
+        fail(f"the model has {gaussians.n_points(trained)} gaussians after the last event's {n_prev}")
+
+    # Evaluation: the 8 views before and after training.
+    with torch.no_grad():
+        before = [gaussians.render(p0, c, raster_config=raster_cfg)[0] for c in cams]
+        after = [gaussians.render(trained, c, raster_config=raster_cfg)[0] for c in cams]
+    lpips = synthetic_lpips(root)
+    (m0, m1), eval_ms = device_ms(dev, lambda: [metrics.evaluate_pairs(r, list(gt), lpips) for r in (before, after)])
+    log("gs", f"evaluate_pairs over {GS_CAMS} views, at initialisation -> after training: PSNR {m0['PSNR']:.4f} -> "
+              f"{m1['PSNR']:.4f} dB, SSIM {m0['SSIM']:.4f} -> {m1['SSIM']:.4f}, lpips_synthetic {m0['LPIPS']:.4f} -> "
+              f"{m1['LPIPS']:.4f} (seeded synthetic VGG16 / LPIPS weights, not a real LPIPS score); {eval_ms:.1f} ms "
+              f"for both (CUDA events)")
+    if not all(np.isfinite(v) for m in (m0, m1) for v in m.values()):
+        fail(f"non-finite metrics {m0} {m1}")
+    if not m1["PSNR"] > m0["PSNR"] + GS_MIN_PSNR_GAIN:
+        fail(f"PSNR after training {m1['PSNR']:.4f} dB is not {GS_MIN_PSNR_GAIN} dB above {m0['PSNR']:.4f} dB")
+    rdir, gdir = os.path.join(root, "renders"), os.path.join(root, "gt")
+    os.makedirs(rdir)
+    os.makedirs(gdir)
+    q_r, q_g = [], []
+    t0 = time.perf_counter()
+    for i, (r, g_) in enumerate(zip(after, gt)):
+        for img, d, q in ((r, rdir, q_r), (g_, gdir, q_g)):
+            u8 = (img.clamp(0, 1) * 255).round().to(torch.uint8)
+            write_png(os.path.join(d, f"{i:05d}.png"), u8)
+            q.append(u8.to(torch.float32) / 255.0)
+    t_png = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_dir = metrics.evaluate_dirs(rdir, gdir, device="cuda")
+    t_dirs = time.perf_counter() - t0
+    m_q = metrics.evaluate_pairs(q_r, q_g)
+    log("gs", f"8-bit PNGs: written in {t_png:.1f} s; evaluate_dirs PSNR {m_dir['PSNR']:.4f} SSIM "
+              f"{m_dir['SSIM']:.4f} in {t_dirs:.1f} s, the 8-bit images in memory {m_q['PSNR']:.4f} / "
+              f"{m_q['SSIM']:.4f}")
+    if set(m_dir) != {"PSNR", "SSIM"} or any(abs(m_dir[k] - m_q[k]) > 1e-5 * abs(m_q[k]) for k in m_q):
+        fail(f"evaluate_dirs {m_dir} differs from the 8-bit images' {m_q}")
+    del before, after, trained, p0, gt
+    torch.cuda.empty_cache()
+
+    # The border-face postprocess on the SuGaR sphere with a cap cut off.
+    with torch.no_grad():
+        cz = params.points[config.faces].mean(dim=1)[:, 2].cpu().numpy()
+    p_open, c_open = mesh_update.subset_sugar_faces(params, config, cz >= GS_CAP_Z)
+    ((p_pp, c_pp), mask_pp), pp_ms = device_ms(dev, lambda: mesh_update.postprocess_border_faces(p_open, c_open))
+    n_open = c_open.faces.shape[0]
+    peeled = mesh_update.last_postprocess
+    log("gs", f"postprocess_border_faces on {n_open} faces (cap z < {GS_CAP_Z} cut off, {6 * n_open} centres): "
+              f"peeled {peeled['peeled']}, re-added {peeled['readded']}, kept {int(mask_pp.sum())}; "
+              f"{pp_ms:.1f} ms (CUDA events around the call)")
+    if not (peeled["peeled"] > 0 and c_pp.faces.shape[0] == int(mask_pp.sum()) == n_open - peeled["peeled"]
+            + peeled["readded"] and p_pp.scales.shape[0] == 6 * c_pp.faces.shape[0]):
+        fail(f"border postprocess: {peeled}, {c_pp.faces.shape[0]} faces")
+    del p_open, c_open, p_pp, c_pp
+
+    # The refine knobs.
+    kcfg = refine.RefineConfig(num_iterations=GS_KNOB_ITERS, loose_bind_from=10**9, use_laplacian_smoothing=True,
+                               area_reg_from=0)
+    _, _, khist = refine.refine_frame(params, config, data, kcfg, raster_cfg, log_every=1)
+    keys = ("laplacian_loss", "area_reg_loss", "loss")
+    log("gs", f"refine_frame {GS_KNOB_ITERS} its with use_laplacian_smoothing and area_reg_from=0: "
+              + ", ".join(f"{k} {[round(h[k], 6) for h in khist]}" for k in keys))
+    if len(khist) != GS_KNOB_ITERS or not all(k in h and np.isfinite(h[k]) for h in khist for k in keys):
+        fail(f"the knobs' losses are missing or not finite: {khist}")
+
+    # A composite render: the model, and the same model moved with half its gaussians masked.
+    n = params.scales.shape[0]
+    move = torch.eye(4, device=dev)
+    move[:3, 3] = torch.tensor([0.3, 0.0, 0.2], device=dev)
+    entries = [compositor.CompositorEntry(params, config),
+               compositor.CompositorEntry(params, config, transform=move,
+                                          mask=torch.arange(n, device=dev) % 2 == 0)]
+    with torch.no_grad():
+        (img, aux), comp_ms = device_ms(dev, lambda: compositor.render_composite(entries, cams[0],
+                                                                                 raster_config=raster_cfg))
+    log("gs", f"render_composite of 2 x {n} gaussians: {comp_ms:.1f} ms, {aux.num_pairs} pairs, image "
+              f"{tuple(img.shape)} mean {float(img.mean()):.4f}")
+    if tuple(img.shape) != (REF_H, REF_W, 3) or not torch.isfinite(img).all():
+        fail("the composite render is not a finite full-width image")
+
+    launches = dict(bc.LAUNCHES)
+    expected = {"blend_fwd": GS_CAMS + GS_ITERS + 2 * GS_CAMS + GS_KNOB_ITERS + 1,
+                "blend_bwd": GS_ITERS + GS_KNOB_ITERS}
+    log("gs", f"launches {launches}, expected {expected} (fwd = {GS_CAMS} GT + {GS_ITERS} training + "
+              f"2 x {GS_CAMS} evaluation + {GS_KNOB_ITERS} knob + 1 composite renders; bwd = training + knob "
+              f"iterations); phase wall {time.perf_counter() - t_phase:.1f} s")
+    if launches != expected:
+        fail(f"phase 10 launched the kernels {launches}, expected {expected}")
     return launches
 
 
@@ -1027,10 +1269,15 @@ def main() -> int:
     t0 = time.perf_counter()
     prep_launches = prep_phase(torch, bc)
     log("prep", f"phase wall {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    # 10 vanilla 3DGS, evaluation, the border postprocess, the knobs, a composite
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gs_") as root:
+        gs_launches = gs_phase(torch, bc, root)
     for k in kernels:
         k["launches_topo"] = topo_launches[k["name"]]
         k["launches_seq"] = seq_launches[k["name"]]
         k["launches_prep"] = prep_launches.get(k["name"], 0)
+        k["launches_gs"] = gs_launches[k["name"]]
     kernels[0]["max_abs_err_fwd_only"] = fwd_only_err
     log("done", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

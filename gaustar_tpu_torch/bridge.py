@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from gaustar_tpu_torch.cameras import Camera
-from gaustar_tpu_torch.models import neural_field, sugar
+from gaustar_tpu_torch.models import gaussians, neural_field, sugar
 from gaustar_tpu_torch.ops import segment
 from gaustar_tpu_torch.train.refine import FrameData
 from gaustar_tpu_torch.utils.general import resolve_device
@@ -22,6 +22,16 @@ from gaustar_tpu_torch.utils.general import resolve_device
 def sugar_params_from_numpy(arrays: dict, device="cuda") -> sugar.SuGaRParams:
     """SuGaRParams (fresh leaves requiring grad) from {field: array}."""
     return sugar.make_params(arrays, resolve_device(device))
+
+
+def gaussian_params_from_numpy(arrays: dict, device="cuda") -> gaussians.GaussianParams:
+    """GaussianParams of float32 copies from {field: array} of the JAX
+    GaussianParams (no dead slots expected: pass only its live rows)."""
+    dev = resolve_device(device)
+    return gaussians.GaussianParams(
+        **{f.name: torch.tensor(np.asarray(arrays[f.name], np.float32), device=dev)
+           for f in dataclasses.fields(gaussians.GaussianParams)}
+    )
 
 
 def sugar_config_from_numpy(arrays: dict, device="cuda") -> sugar.SuGaRConfig:

@@ -1,12 +1,12 @@
 """Image files without PIL (the card's machine has neither PIL nor OpenCV).
 
-PNG: 8-bit gray, gray + alpha, RGB and RGBA, non-interlaced, read with every
-one of the five row filters (None, Sub, Up, Average, Paeth) and written with
-filter None, through zlib and numpy on the host. Sub and Up rows are undone
-as array operations; Average and Paeth rows depend on their left neighbour
-through a nonlinear step and run a Python loop over the row's bytes, so a
-large image written with them reads slowly (this module's writer never uses
-them).
+PNG: 8-bit gray, gray + alpha, RGB and RGBA, plain or Adam7-interlaced, read
+with every one of the five row filters (None, Sub, Up, Average, Paeth) and
+written non-interlaced with filter None, through zlib and numpy on the host.
+Sub and Up rows are undone as array operations; Average and Paeth rows
+depend on their left neighbour through a nonlinear step and run a Python
+loop over the row's bytes, so a large image written with them reads slowly
+(this module's writer never uses them).
 
 JPEG: nvJPEG, the CUDA toolkit's codec (csrc/jpeg_codec.cu, built at first
 use by ops/_build.py and linked with -lnvjpeg). A decoded frame lands on the
@@ -27,6 +27,8 @@ import torch
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS_OF_COLOR_TYPE = {0: 1, 4: 2, 2: 3, 6: 4}
 _COLOR_TYPE_OF_CHANNELS = {c: t for t, c in _CHANNELS_OF_COLOR_TYPE.items()}
+# Adam7's seven passes: (x0, y0, dx, dy) of the pixels each holds (PNG spec, 8.2).
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 # ---------------------------------------------------------------------------
@@ -99,12 +101,25 @@ def read_png(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     width, height, depth, color_type, _, _, interlace = header
-    if depth != 8 or color_type not in _CHANNELS_OF_COLOR_TYPE or interlace != 0:
-        raise ValueError(f"{path}: only 8-bit non-interlaced gray/gray-alpha/RGB/RGBA PNGs are read "
+    if depth != 8 or color_type not in _CHANNELS_OF_COLOR_TYPE or interlace not in (0, 1):
+        raise ValueError(f"{path}: only 8-bit gray/gray-alpha/RGB/RGBA PNGs are read "
                          f"(bit depth {depth}, colour type {color_type}, interlace {interlace})")
     bpp = _CHANNELS_OF_COLOR_TYPE[color_type]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    img = _unfilter(raw, height, width, bpp).reshape(height, width, bpp)
+    if interlace == 0:
+        img = _unfilter(raw, height, width, bpp).reshape(height, width, bpp)
+    else:
+        # Each pass is a small image of its own, filtered on its own; a pass
+        # with no pixels stores nothing.
+        img = np.empty((height, width, bpp), np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            w, h = -(-(width - x0) // dx), -(-(height - y0) // dy)
+            if w <= 0 or h <= 0:
+                continue
+            size = h * (w * bpp + 1)
+            img[y0::dy, x0::dx] = _unfilter(raw[pos:pos + size], h, w, bpp).reshape(h, w, bpp)
+            pos += size
     return img[..., 0] if bpp == 1 else img
 
 

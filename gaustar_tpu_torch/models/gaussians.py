@@ -1,12 +1,10 @@
-"""Vanilla 3DGS parameters and their .ply checkpoint format (counterpart of
-part of gaustar_tpu/models/gaussians.py; gaussian_model.py:24-256).
+"""The vanilla 3DGS model: parameters, initialization from a point cloud,
+rendering and the .ply checkpoint format (counterpart of
+gaustar_tpu/models/gaussians.py; gaussian_model.py:24-256).
 
-Only what the SuGaR export needs is here: `GaussianParams`, `save_ply` and
-`load_ply`. The rest of the JAX module (the vanilla 3DGS model and its
-renderer) belongs to the periphery and is not ported yet. Activations, as
-the reference's: scaling = exp(log-scales), opacity = sigmoid(logits),
-rotation = normalized w-first quaternion; SH features split into dc
-[N, 1, 3] and rest [N, K-1, 3].
+Activations, as the reference's: scaling = exp(log-scales), opacity =
+sigmoid(logits), rotation = normalized w-first quaternion; SH features split
+into dc [N, 1, 3] and rest [N, K-1, 3].
 """
 
 from __future__ import annotations
@@ -16,8 +14,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from gaustar_tpu_torch.cameras import Camera
 from gaustar_tpu_torch.io import ply
-from gaustar_tpu_torch.utils.general import resolve_device
+from gaustar_tpu_torch.ops import sh as sh_ops
+from gaustar_tpu_torch.ops.knn import dist2_avg3
+from gaustar_tpu_torch.ops.projection import quat_scale_to_cov3d
+from gaustar_tpu_torch.ops.rasterizer import RasterConfig, rasterize
+from gaustar_tpu_torch.utils.general import inverse_sigmoid, normalize, resolve_device
 
 
 @dataclasses.dataclass
@@ -28,6 +31,72 @@ class GaussianParams:
     scaling: torch.Tensor  # [N, 3] log-scales
     rotation: torch.Tensor  # [N, 4] raw quats (normalized at use)
     opacity: torch.Tensor  # [N, 1] logits
+
+    def named(self):
+        return [(f.name, getattr(self, f.name)) for f in dataclasses.fields(self)]
+
+
+def n_points(p: GaussianParams) -> int:
+    return p.xyz.shape[0]
+
+
+def get_scaling(p: GaussianParams) -> torch.Tensor:
+    return torch.exp(p.scaling)
+
+
+def get_rotation(p: GaussianParams) -> torch.Tensor:
+    return normalize(p.rotation)
+
+
+def get_opacity(p: GaussianParams) -> torch.Tensor:
+    return torch.sigmoid(p.opacity)
+
+
+def get_features(p: GaussianParams) -> torch.Tensor:
+    return torch.cat([p.features_dc, p.features_rest], dim=1)  # [N, K, 3]
+
+
+def create_from_pcd(points, colors, sh_degree: int = 2, device="cuda") -> GaussianParams:
+    """From a coloured point cloud (gaussian_model.py:121-144): isotropic
+    log-scales log(sqrt(dist2_avg3)) with dist2 clamped at 1e-7, opacity
+    0.1, identity rotations, the colours as the DC band. `points` and
+    `colors` are [N, 3] arrays or tensors; the result's tensors lie on
+    `device` and do not require grad."""
+    dev = resolve_device(device)
+    xyz = torch.as_tensor(points, dtype=torch.float32, device=dev).contiguous()
+    rgb = torch.as_tensor(colors, dtype=torch.float32, device=dev)
+    n, k = xyz.shape[0], (sh_degree + 1) ** 2
+    dist2 = torch.clamp_min(dist2_avg3(xyz), 1e-7)
+    rotation = torch.zeros((n, 4), dtype=torch.float32, device=dev)
+    rotation[:, 0] = 1.0
+    return GaussianParams(
+        xyz=xyz,
+        features_dc=sh_ops.rgb_to_sh(rgb)[:, None, :],
+        features_rest=torch.zeros((n, k - 1, 3), dtype=torch.float32, device=dev),
+        scaling=torch.log(torch.sqrt(dist2))[:, None].repeat(1, 3),
+        rotation=rotation,
+        opacity=inverse_sigmoid(torch.full((n, 1), 0.1, dtype=torch.float32, device=dev)),
+    )
+
+
+def render(
+    p: GaussianParams,
+    camera: Camera,
+    bg=(0.0, 0.0, 0.0),
+    sh_deg: int | None = None,
+    raster_config: RasterConfig = RasterConfig(),
+    means2d_dummy=None,
+):
+    """(image [H, W, 3], RasterAux) through ops/rasterizer.rasterize, SH
+    evaluated here at `sh_deg` (all bands when None)
+    (gaussian_renderer/__init__.py:18-113)."""
+    feats = get_features(p)
+    if sh_deg is None:
+        sh_deg = int(np.sqrt(feats.shape[1])) - 1
+    colors = sh_ops.sh_to_rgb(sh_deg, feats[:, : (sh_deg + 1) ** 2], p.xyz, camera.camera_center)
+    cov = quat_scale_to_cov3d(get_scaling(p), get_rotation(p))
+    return rasterize(p.xyz, cov, get_opacity(p).reshape(-1), colors, camera, bg=bg, config=raster_config,
+                     means2d_dummy=means2d_dummy)
 
 
 def _np(t) -> np.ndarray:

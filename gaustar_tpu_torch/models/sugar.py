@@ -25,6 +25,7 @@ import torch
 from gaustar_tpu_torch.cameras import Camera
 from gaustar_tpu_torch.ops import segment
 from gaustar_tpu_torch.ops import sh as sh_ops
+from gaustar_tpu_torch.ops.knn import knn_points
 from gaustar_tpu_torch.ops.rasterizer import RasterConfig, rasterize
 from gaustar_tpu_torch.utils.general import inverse_sigmoid, matrix_to_quaternion, resolve_device
 
@@ -295,6 +296,24 @@ def geom_primitives(params: SuGaRParams, config: SuGaRConfig, use_solid_surface:
         gaussian_centers(params, config, v),
         covariance6(params, config, use_solid_surface, v),
     )
+
+
+@torch.no_grad()
+def compute_density(params: SuGaRParams, config: SuGaRConfig, x: torch.Tensor, k: int = 16,
+                    density_factor: float = 1.0) -> torch.Tensor:
+    """Density at query points [Q, 3]: over the k gaussians with the nearest
+    centres, sum strength * exp(-1/2 shift^T Sigma^-1 shift)
+    (compute_density, sugar_model.py:1017-1040). The border-face
+    postprocess reads it (refined_mesh.py:1180-1182). The frame products
+    are written out elementwise, so no matmul (and no TF32) is involved."""
+    centers = gaussian_centers(params, config)
+    _, idx = knn_points(x, centers, k=k)  # [Q, k]
+    frames = gaussian_frames(params, config)[idx]  # [Q, k, 3, 3], columns are the axes
+    inv_s = 1.0 / scaling(params, config)[idx]  # [Q, k, 3]
+    shift = x[:, None, :] - centers[idx]  # [Q, k, 3]
+    warped = (frames * shift[..., :, None]).sum(-2) * inv_s  # U^T shift / s
+    m2 = torch.clamp((warped**2).sum(-1), 0.0, 1e8)
+    return (density_factor * strengths(params)[idx] * torch.exp(-0.5 * m2)).sum(-1)
 
 
 def sh_coordinates(params: SuGaRParams) -> torch.Tensor:

@@ -22,6 +22,10 @@ def l1_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return torch.abs(pred - gt).mean()
 
 
+def l2_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    return ((pred - gt) ** 2).mean()
+
+
 @functools.lru_cache(maxsize=8)
 def _gaussian_window(window_size: int, sigma: float) -> np.ndarray:
     x = np.arange(window_size, dtype=np.float64)
@@ -70,6 +74,26 @@ def ssim_map_cm(img1_cm: torch.Tensor, img2_cm: torch.Tensor, window_size: int =
     return ((2.0 * mu1_mu2 + c1) * (2.0 * sigma12 + c2)) / (
         (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2)
     )
+
+
+def ssim_map(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch.Tensor:
+    """Per-pixel SSIM map of two [H, W, C] images -> [H, W, C]."""
+    return ssim_map_cm(img1.permute(2, 0, 1), img2.permute(2, 0, 1), window_size).permute(1, 2, 0)
+
+
+def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch.Tensor:
+    """Mean SSIM over an [H, W, C] image pair (loss_utils.py:33-63)."""
+    return ssim_map(img1, img2, window_size).mean()
+
+
+def rgb_loss(pred: torch.Tensor, gt: torch.Tensor, dssim_factor: float = 0.2) -> torch.Tensor:
+    """0.8*L1 + 0.2*DSSIM on [H, W, C] images (refine.py:107-109, 446-453)."""
+    return (1.0 - dssim_factor) * l1_loss(pred, gt) + dssim_factor * (1.0 - ssim(pred, gt))
+
+
+def psnr(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    mse = ((pred - gt) ** 2).mean()
+    return 20.0 * torch.log10(1.0 / torch.sqrt(mse))
 
 
 # ---------------------------------------------------------------------------
@@ -198,3 +222,29 @@ def mesh_normal_consistency_loss(verts, faces, adj_faces, tables=None, adj_table
     nv = gather_rows(normals, adj_faces.reshape(-1), adj_tables).reshape(-1, 2, 3)
     dot = sum(nv[:, 0, d] * nv[:, 1, d] for d in range(3))
     return (1.0 - dot).mean()
+
+
+def mesh_laplacian_smoothing_loss(verts: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """Uniform-Laplacian smoothing (the reference's default-off
+    surface_mesh_laplacian_smoothing_loss, refine.py:117-122, 680-682): mean
+    over vertices of ||mean(neighbours) - v||, neighbours from the undirected
+    edge list; isolated vertices contribute 0. The norm clamps its square at
+    1e-24 inside the sqrt, so a vertex at its neighbours' centroid gets
+    gradient 0, not NaN."""
+    n = verts.shape[0]
+    src = torch.cat([edges[:, 0], edges[:, 1]])
+    dst = torch.cat([edges[:, 1], edges[:, 0]])
+    nb_sum = verts.new_zeros((n, 3)).index_add(0, src, verts[dst])
+    deg = verts.new_zeros(n).index_add(0, src, torch.ones_like(src, dtype=verts.dtype))
+    lap = nb_sum / torch.clamp_min(deg, 1.0)[:, None] - verts
+    lap = torch.where((deg > 0)[:, None], lap, torch.zeros_like(lap))
+    return _safe_norm((lap * lap).sum(-1)).mean()
+
+
+def mesh_area_reg_loss(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """relu(mean_area / face_area - 2).mean() with the mean area detached:
+    the reference's default-off area_reg, penalizing faces that shrink below
+    half the average area (refine.py:143-144, 713-718)."""
+    areas, _ = face_areas_normals(verts, faces)
+    mean_area = areas.mean().detach()
+    return torch.relu(mean_area / torch.clamp_min(areas, 1e-12) - 2.0).mean()

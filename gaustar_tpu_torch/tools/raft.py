@@ -21,15 +21,13 @@ JAX package samples as zeros, stay defined.
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from gaustar_tpu_torch.tools.geometry import resize_linear
-from gaustar_tpu_torch.utils.general import resolve_device
+from gaustar_tpu_torch.utils.general import full_float32, resolve_device
 
 # ---------------------------------------------------------------------------
 # Modules (extractor.py, update.py), laid out so that state_dict() has the
@@ -238,25 +236,11 @@ def upsample_flow_convex(flow, mask):
     return up.permute(0, 1, 4, 2, 5, 3).reshape(b, 2, 8 * h, 8 * w)
 
 
-@contextlib.contextmanager
-def _float32():
-    """Convolutions and matmuls in full float32 (no TF32), restored after."""
-    cudnn = torch.backends.cudnn
-    precision = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic,
-                         allow_tf32=False):
-            yield
-    finally:
-        torch.set_float32_matmul_precision(precision)
-
-
 @torch.no_grad()
 def raft_forward(model: RAFT, image1, image2, iters: int = 20):
     """image1/2 [B, 3, H, W] in [0, 255], H and W divisible by 8 -> the
     full-resolution flow [B, 2, H, W] (x, y displacement)."""
-    with _float32():
+    with full_float32():
         img1 = 2.0 * (image1 / 255.0) - 1.0
         img2 = 2.0 * (image2 / 255.0) - 1.0
         fmap1, fmap2 = model.fnet(img1), model.fnet(img2)

@@ -29,7 +29,7 @@ from gaustar_tpu_torch.cameras import Camera
 from gaustar_tpu_torch.mesh import tsdf as tsdf_mod
 from gaustar_tpu_torch.mesh.surgery import Mesh, get_outlier_cc_mask
 from gaustar_tpu_torch.models import neural_field as nf
-from gaustar_tpu_torch.utils.general import device_ms, l2norm
+from gaustar_tpu_torch.utils.general import StepClock, device_ms, l2norm
 
 # The last train_field call: "occupancy_ms" (carving, device), "step_ms" (each
 # iteration from its draws to the optimizer step, between CUDA events on a
@@ -72,29 +72,6 @@ def rays_for_pixels(camera: Camera, px: torch.Tensor, py: torch.Tensor):
     return camera.camera_center.expand(d_world.shape), d_world
 
 
-class _StepClock:
-    """Per-iteration times: CUDA events on a card, the host clock on the CPU."""
-
-    def __init__(self, dev: torch.device):
-        self.cuda = dev.type == "cuda"
-        self.marks = []
-
-    def mark(self):
-        if self.cuda:
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            self.marks.append(e)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def intervals_ms(self) -> list[float]:
-        if self.cuda:
-            if self.marks:
-                self.marks[-1].synchronize()
-            return [a.elapsed_time(b) for a, b in zip(self.marks[::2], self.marks[1::2])]
-        return [1e3 * (b - a) for a, b in zip(self.marks[::2], self.marks[1::2])]
-
-
 def train_field(
     cameras: list[Camera],
     images,  # [C, H, W, 3] in [0, 1], numpy or tensor
@@ -131,7 +108,7 @@ def train_field(
     c, h, w = masks_np.shape
     fg_cache = {}
     gen = torch.Generator(device=dev).manual_seed(seed) if jitter is None else None
-    clock = _StepClock(dev)
+    clock = StepClock(dev)
 
     rng = np.random.default_rng(seed)
     n = cfg.rays_per_batch

@@ -11,6 +11,9 @@ the native mesh library (native/).
 update_mesh_with_fusion (refined_mesh.py:924-1062): try update_mesh_topo over
 aabb_pad in {10, 15, 20, 25, 30} mm and keep the attempt with the smallest
 boundary connection distance.
+
+postprocess_border_faces (refined_mesh.py:1155-1217): the optional
+--postprocess_mesh step, which peels low-density border faces.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ from gaustar_tpu_torch.utils.general import device_ms
 
 #: What the most recent extract_mesh_fusion call did: views, volume, times.
 last_fusion: dict | None = None
+#: The most recent postprocess_border_faces call's "peeled" and "readded" faces.
+last_postprocess: dict = {}
 
 @torch.no_grad()
 def render_rgbd_for_fusion(
@@ -207,6 +212,41 @@ def update_mesh_with_fusion(
     if best is not None:
         return best
     return {"cc_update_num": 0, "fusion_volume_truncated": False}
+
+
+def postprocess_border_faces(params: sugar.SuGaRParams, config: sugar.SuGaRConfig,
+                             density_threshold: float = 0.1, iterations: int = 5, k: int = 16):
+    """Remove border triangles that carry low-density gaussians (defaults
+    from train_seq.py:49-56). Peels, `iterations` times, every face that owns
+    a boundary edge (an edge no other kept face shares), then re-adds the
+    peeled faces whose centre density (sugar.compute_density over the k
+    nearest gaussians) exceeds `density_threshold`. Returns
+    ((params, config) subset to the kept faces, face_mask [F] bool); the
+    vertices are unchanged. Edges are counted exactly by integer keys, where
+    the reference matches them with a knn_points distance under 0.01
+    (refined_mesh.py:1173-1177)."""
+    faces = config.faces.cpu().numpy()
+    e = np.stack([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]], axis=1)
+    e.sort(axis=-1)
+    ekey = e[..., 0].astype(np.int64) * (int(faces.max()) + 1) + e[..., 1]
+
+    face_mask = np.ones(len(faces), bool)
+    for _ in range(iterations):
+        _, inv, counts = np.unique(ekey[face_mask].reshape(-1), return_inverse=True, return_counts=True)
+        inside = (counts[inv.reshape(-1)] >= 2).reshape(-1, 3).all(axis=-1)
+        if inside.all():
+            break
+        face_mask[face_mask] = inside
+
+    removed = ~face_mask
+    if removed.any():
+        dev = params.points.device
+        sel = torch.as_tensor(faces[removed], device=dev)
+        centers = params.points.detach()[sel].mean(dim=1)
+        face_mask[removed] = (sugar.compute_density(params, config, centers, k=k) > density_threshold).cpu().numpy()
+    last_postprocess.clear()
+    last_postprocess.update(peeled=int(removed.sum()), readded=int(face_mask[removed].sum()))
+    return subset_sugar_faces(params, config, face_mask), face_mask
 
 
 def subset_sugar_faces(params: sugar.SuGaRParams, config: sugar.SuGaRConfig, face_mask):

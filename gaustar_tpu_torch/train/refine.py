@@ -10,6 +10,7 @@ Loss stack (refine.py:584-748):
   edge_iso, area_iso   factor * isometry terms
   unbind   100 * w*|delta_t| + 1 * w*|delta_r.xyz| (once loose-bound)
   opacity  relu(0.8 - opacity).mean()
+  laplacian, area_reg   default-off (use_laplacian_smoothing, area_reg_from)
 RGB and depth come from one fused 4-channel render, channels-major.
 
 `refine_frame` takes the topology-detection hook (`detect_topo_fn`,
@@ -62,6 +63,11 @@ class RefineConfig:
     edge_iso_from: int = 0
     area_iso_factor: float = 1000.0
     area_iso_from: int = 0
+    # Default-off knobs of the reference (refine.py:117-122, 143-144).
+    use_laplacian_smoothing: bool = False
+    laplacian_smoothing_factor: float = 5.0  # the "uniform" method
+    area_reg_loss_factor: float = 0.1
+    area_reg_from: int = 999999  # inactive unless below num_iterations
     use_opacity_reg: bool = True
     min_opacity: float = 0.8
     loose_bind_from: int = 1000
@@ -211,6 +217,16 @@ def shared_losses(params, model_config, data: FrameData, iteration: int, cfg: Re
     if iteration > cfg.area_iso_from:
         loss = loss + area
     loss_dict["area_loss"] = area
+
+    if cfg.use_laplacian_smoothing:
+        lap = cfg.laplacian_smoothing_factor * losses.mesh_laplacian_smoothing_loss(verts, data.edges)
+        loss = loss + lap
+        loss_dict["laplacian_loss"] = lap
+    if cfg.area_reg_from < cfg.num_iterations:
+        area_reg = cfg.area_reg_loss_factor * losses.mesh_area_reg_loss(verts, faces)
+        if iteration > cfg.area_reg_from:
+            loss = loss + area_reg
+        loss_dict["area_reg_loss"] = area_reg
 
     if model_config.loose_bind and unbind_weight is not None:
         w = unbind_weight[:, None]

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -31,6 +32,47 @@ def device_ms(dev: torch.device, fn):
     t0 = time.perf_counter()
     out = fn()
     return out, 1e3 * (time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def full_float32():
+    """cuDNN convolutions and cuBLAS matmuls in full float32 (no TF32)
+    inside the block, whatever the global switches say; they are restored
+    after. Only the per-backend switches are touched: PyTorch refuses to
+    read its generic matmul precision once a program has set both kinds."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    tf32 = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic,
+                         allow_tf32=False):
+            yield
+    finally:
+        matmul.allow_tf32 = tf32
+
+
+class StepClock:
+    """Interval times: CUDA events on a card, the host clock on the CPU.
+    Marks pair up: (start, end), (start, end), ..."""
+
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+        self.marks = []
+
+    def mark(self):
+        if self.cuda:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.marks.append(e)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def intervals_ms(self) -> list[float]:
+        if self.cuda:
+            if self.marks:
+                self.marks[-1].synchronize()
+            return [a.elapsed_time(b) for a, b in zip(self.marks[::2], self.marks[1::2])]
+        return [1e3 * (b - a) for a, b in zip(self.marks[::2], self.marks[1::2])]
 
 
 def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,8 @@ import numpy as np
 import torch
 
 from gaustar_tpu_torch.cameras import Camera, stack_cameras
+from gaustar_tpu_torch.eval.lpips_convert import LIN_CHANNELS
+from gaustar_tpu_torch.eval.metrics import VGG_CFG
 from gaustar_tpu_torch.mesh.primitives import icosphere, uv_sphere
 from gaustar_tpu_torch.mesh.topology import build_topology
 from gaustar_tpu_torch.models import sugar
@@ -283,6 +285,29 @@ def sequence_dataset(root: str, size: str = "full", device="cuda", seed: int = 0
 
 
 @torch.no_grad()
+def lpips_checkpoints(root: str, seed: int = 0) -> tuple[str, str]:
+    """Seeded synthetic stand-ins for the published VGG16 and LPIPS(vgg)
+    checkpoints, in their layouts (a torchvision state dict with its
+    classifier head, the lpips package's `lin{i}.model.1.weight`), written
+    to `root`: (vgg16.pth, lpips_vgg.pth). The draws are those of the JAX
+    package's tests/test_lpips.py. Scores with them are not LPIPS scores."""
+    g = torch.Generator().manual_seed(seed)
+    state, in_ch, idx = {}, 3, 0
+    for v in VGG_CFG:
+        if v == "M":
+            idx += 1
+            continue
+        state[f"features.{idx}.weight"] = torch.randn(v, in_ch, 3, 3, generator=g) * 0.05
+        state[f"features.{idx}.bias"] = torch.zeros(v)
+        in_ch, idx = v, idx + 2
+    state["classifier.0.weight"] = torch.zeros(1, 1)
+    lins = {f"lin{i}.model.1.weight": torch.rand(1, c, 1, 1, generator=g) + 0.01 for i, c in enumerate(LIN_CHANNELS)}
+    paths = (os.path.join(root, "vgg16.pth"), os.path.join(root, "lpips_vgg.pth"))
+    torch.save(state, paths[0])
+    torch.save(lins, paths[1])
+    return paths
+
+
 def render_inputs(params, config, camera):
     """(means, cov3d, opacities, features [N, 4], camera) of one camera's
     fused RGB+depth render of `params`: feature 3 is the view depth."""

@@ -37,5 +37,6 @@ def test_port_has_modules():
                      "ops/image.py", "tools/geometry.py", "train/topo_detect.py", "mesh/tsdf.py",
                      "mesh/surgery.py", "train/mesh_update.py", "train/sequence.py",
                      "models/neural_field.py", "train/init_mesh.py", "tools/mesh_render.py", "tools/raft.py",
-                     "tools/depth_fusion.py"):
+                     "tools/depth_fusion.py", "ops/knn.py", "models/gaussians.py", "train/densifier.py",
+                     "train/train_gaussians.py", "models/compositor.py", "eval/metrics.py", "eval/lpips_convert.py"):
         assert required in names

@@ -208,7 +208,12 @@ def _filter_rows(img: np.ndarray) -> bytes:
     return b"".join(out)
 
 
-def _write_filtered_png(path, img):
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _write_filtered_png(path, img, interlace=False):
+    """An 8-bit PNG of uint8 [H, W, C] whose rows use every filter; with
+    `interlace`, Adam7: each non-empty pass filtered as an image of its own."""
     import struct
     import zlib
 
@@ -218,9 +223,14 @@ def _write_filtered_png(path, img):
     def chunk(t, body):
         return struct.pack(">I", len(body)) + t + body + struct.pack(">I", zlib.crc32(t + body) & 0xFFFFFFFF)
 
+    if interlace:
+        passes = [img[y0::dy, x0::dx] for x0, y0, dx, dy in ADAM7]
+        rows = b"".join(_filter_rows(p) for p in passes if p.size)
+    else:
+        rows = _filter_rows(img)
     with open(path, "wb") as f:
-        f.write(image_codec.PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ct, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(_filter_rows(img))) + chunk(b"IEND", b""))
+        f.write(image_codec.PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ct, 0, 0, int(interlace)))
+                + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
 
 
 @pytest.mark.parametrize("channels", [1, 3, 4], ids=["gray", "rgb", "rgba"])
@@ -240,6 +250,23 @@ def test_png_codec_equals_pil(tmp_path, channels):
     np.testing.assert_array_equal(np.asarray(Image.open(path)), ref)
     Image.fromarray(ref).save(path)
     np.testing.assert_array_equal(image_codec.read_png(path), ref)
+
+
+@pytest.mark.parametrize("shape", [(23, 17), (3, 2), (1, 1), (9, 33)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("channels", [1, 3, 4], ids=["gray", "rgb", "rgba"])
+def test_png_adam7_equals_pil(tmp_path, channels, shape):
+    """Exact: an Adam7-interlaced PNG (every filter, empty passes at the
+    small sizes) reads as PIL reads it."""
+    rng = np.random.default_rng(10 * channels + shape[0])
+    img = rng.integers(0, 256, (*shape, channels), dtype=np.uint8)
+    img[:, : shape[1] // 2] //= 3
+    path = str(tmp_path / "i.png")
+    _write_filtered_png(path, img, interlace=True)
+    pil = Image.open(path)
+    assert pil.info.get("interlace") == 1
+    pil = np.asarray(pil)
+    np.testing.assert_array_equal(pil, img[..., 0] if channels == 1 else img)
+    np.testing.assert_array_equal(image_codec.read_png(path), pil)
 
 
 def test_jpeg_refuses_the_cpu(tmp_path):

@@ -311,3 +311,120 @@ def test_native_decimates_a_sphere(cuda):
     r = np.linalg.norm(dv, axis=1)
     assert 0.9 * 5000 <= len(df) <= 5000 and np.isfinite(dv).all() and np.isfinite(sv).all()
     assert np.abs(np.median(r) - 0.5) < 2e-3 and df.min() >= 0 and df.max() < len(dv)
+
+
+def test_knn_on_card_matches_cpu_with_tf32_on(cuda):
+    """The KNN sums its product without a matmul, so TF32 switched on
+    globally changes nothing: card and CPU within 1e-6 (a few ulps of the
+    centred |q|^2)."""
+    from gaustar_tpu_torch.ops import knn
+
+    rng = np.random.default_rng(0)
+    pts = (rng.normal(scale=0.3, size=(3000, 3)) + [0.0, 0.0, 4.0]).astype(np.float32)
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = knn.knn_sq_dists(torch.as_tensor(pts, device=cuda)).cpu().numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    np.testing.assert_allclose(got, knn.knn_sq_dists(torch.as_tensor(pts)).numpy(), rtol=0, atol=1e-6)
+
+
+def test_lpips_on_card_matches_cpu_with_tf32_on(cuda, tmp_path):
+    """LPIPSVgg pins its convolutions to float32: with cuDNN's TF32 switch
+    on, the card's score of seeded synthetic weights equals the CPU's within
+    1e-5 relative (TF32 would move it by about 1e-3)."""
+    from gaustar_tpu_torch.eval import lpips_convert
+    from gaustar_tpu_torch.eval.metrics import LPIPSVgg
+    from gaustar_tpu_torch.utils.synthetic import lpips_checkpoints
+
+    packed = str(tmp_path / "packed.pt")
+    lpips_convert.convert(*lpips_checkpoints(str(tmp_path)), packed)
+    rng = np.random.default_rng(1)
+    a = rng.uniform(size=(128, 160, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(scale=0.2, size=a.shape), 0, 1).astype(np.float32)
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        card = float(LPIPSVgg(packed, device=cuda)(a, b))
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    cpu = float(LPIPSVgg(packed, device="cpu")(a, b))
+    assert card == pytest.approx(cpu, rel=1e-5)
+
+
+def test_train_gaussians_on_card_matches_cpu(cuda):
+    """Ten vanilla 3DGS iterations with one densify event on the card and
+    on the CPU (plain blend): the event's counts equal, two blend launches
+    per iteration, the parameters within 2 x sum(lr) (Adam with eps 1e-15
+    turns float noise in a near-zero gradient into a step of about lr) and
+    each group's mean difference within 1e-2 x sum(lr)."""
+    from gaustar_tpu_torch.models import gaussians
+    from gaustar_tpu_torch.train import train_gaussians as tg
+    from gaustar_tpu_torch.train.optimizer import OptimizationParams, make_gs_lr_fn
+
+    cfg = tg.GSTrainConfig(iterations=10, densify_from_iter=5, densify_until_iter=10, densification_interval=10,
+                           bg_color=(0.0, 1.0, 0.0), sh_warmup_every=5)
+    pts, cols = _gs_cloud()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        _, _, data, _, _ = synthetic_frame(device=dev)
+        p = gaussians.create_from_pcd(pts, cols, device=dev)
+        events = []
+        bc.reset_launch_counts()
+        params, _ = tg.train_gaussians(p, data.cameras, data.gt_images, cfg, log_fn=events.append)
+        out[dev] = (params, events, dict(bc.LAUNCHES))
+    (pc, ec, _), (pg, eg, launches) = out["cpu"], out["cuda"]
+    assert eg == ec and [e["iteration"] for e in eg] == [9]
+    assert launches == {"blend_fwd": 10, "blend_bwd": 10}
+    lr_fn = make_gs_lr_fn(OptimizationParams(iterations=10), 1.0)
+    for name, t in pg.named():
+        lr_sum = sum(lr_fn(c)[name] for c in range(10))
+        diff = (t.detach().cpu() - getattr(pc, name).detach()).abs()
+        assert float(diff.max()) <= 2 * lr_sum * (1 + 1e-5), name
+        assert float(diff.mean()) <= 1e-2 * lr_sum, name
+
+
+def _gs_cloud():
+    rng = np.random.default_rng(2)
+    pts = rng.normal(scale=0.4, size=(300, 3)).astype(np.float32) + np.array([0, 0, 4], np.float32)
+    return pts, rng.uniform(size=(300, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("sh_deg", [0, 1, 2], ids=["deg0", "deg1", "deg2"])
+def test_grad_step_on_card_matches_cpu(cuda, sh_deg):
+    """One vanilla 3DGS step from seeded SH bands, opacities, scales and
+    unnormalised rotations, through the blend kernels and through their
+    plain versions, on every camera: the loss within 2e-6 relative, the
+    radii exact, every gradient element (six groups and means2d) within
+    1e-4 of its group's largest |gradient|, as the CPU test against the JAX
+    package holds them."""
+    from gaustar_tpu_torch import bridge
+    from gaustar_tpu_torch.cameras import index_camera
+    from gaustar_tpu_torch.models import gaussians
+    from gaustar_tpu_torch.train import train_gaussians as tg
+    from port_helpers import perturbed_gaussians
+
+    cfg = tg.GSTrainConfig(bg_color=(0.0, 1.0, 0.0))
+    fields = perturbed_gaussians({k: v.numpy() for k, v in gaussians.create_from_pcd(*_gs_cloud(), device="cpu")
+                                  .named()}, seed=8)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        _, _, data, _, _ = synthetic_frame(device=dev)
+        p = tg._leaves(bridge.gaussian_params_from_numpy(fields, dev))
+        bc.reset_launch_counts()
+        runs[dev] = [tg._grad_step(p, index_camera(data.cameras, c), data.gt_images[c], sh_deg, cfg,
+                                   tg.RasterConfig()) for c in range(data.gt_images.shape[0])]
+        launches = dict(bc.LAUNCHES)
+    assert launches == {"blend_fwd": len(runs["cuda"]), "blend_bwd": len(runs["cuda"])}
+    for c, ((lc, gc, dc, rc), (lg, gg, dg, rg)) in enumerate(zip(runs["cpu"], runs["cuda"])):
+        np.testing.assert_allclose(float(lg), float(lc), rtol=2e-6)
+        np.testing.assert_array_equal(rg.cpu().numpy(), rc.numpy())
+        for name, got, ref in [(k, gg[k].cpu().numpy(), gc[k].numpy()) for k in gc] + [
+                ("means2d", dg.cpu().numpy(), dc.numpy())]:
+            scale = np.abs(ref).max()
+            if name == "features_rest" and sh_deg == 0:
+                assert scale == 0 and not got.any()
+                continue
+            assert scale > 0, name
+            np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4 * scale, err_msg=f"camera {c} {name}")
