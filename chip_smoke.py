@@ -121,6 +121,41 @@ Phases, one line of output each (or a few):
              survivors + clones + 2 splits), the PSNR after training exceeds the initial
              one by GS_MIN_PSNR_GAIN dB, the knobs' terms are in the loss dict
              and each kernel launched exactly as often as the phase implies.
+ 11 strips   the kernels' tile_base: the full-width frame of phases 3-6 (camera
+             0, 4 channels) blended as STRIP_SPLITS strips of ceil(T / D_g)
+             tiles, each strip one launch of each kernel with its first tile
+             as tile_base (D_g = 3 pads the last strip with two empty tiles):
+             the strips' forward rows 0-6 must equal the full-grid launch's
+             bit for bit and their gradients within STRIP_GRAD_RTOL of each
+             field's inf-norm (it prints whether they are bit-equal), with
+             each strip's time against the full grid's; one strip's 64
+             busiest tiles against the plain versions at phases 3-4's
+             tolerances; one launch of each kernel per strip;
+ 12 dist     the multi-GPU training path on ranks spawned on the one card
+             (torch.multiprocessing, spawn, gloo, a file:// rendezvous in a
+             temporary directory), at full width (the reference scene):
+             make_sharded_train_step on DIST_CAM_RANKS ranks x DIST_B
+             cameras, then make_gauss2d_train_step on cam 2 x gauss
+             DIST_GAUSS. Each rank takes one SGD(lr 1) step, whose gradients
+             must equal its own single-process step's mean over the same
+             cameras (rtol DIST_RTOL, atol DIST_RTOL of each leaf's
+             inf-norm, at least DIST_ATOL_FLOOR), then DIST_ADAM_STEPS Adam
+             steps with finite losses, then DIST_TIMED_STEPS more with each
+             collective timed alone (the card synchronised around it). Per
+             rank it prints the step walls, the bytes put into collectives
+             per step, the collectives' time and share of a timed step and
+             the peak memory, and its launches must be one forward and one
+             backward per local camera and step. These are ranks sharing one card, not cards;
+ 13 tools    registration on the card (ICP recovers a rigid T from the
+             reference model's vertices within TOOLS_MAX_T_ERR; the moved
+             model's render against the original seen by the moved camera,
+             at least TOOLS_MIN_PSNR dB), the model cut and recolour;
+             profiling.loop_bench of the refine step against phase 5's
+             median; profiling.trace of one step, which must show the blend
+             kernels; exact launch counts.
+The kernels line adds launches_strips, launches_dist (summed over the ranks
+of both steps) and launches_tools, and each kernel's max |error| on the
+strip against its plain version.
 The last line is the JSON result {"ok": true, "device": {...}}. Any failed
 phase raises, and the script exits non-zero without that line.
 """
@@ -230,6 +265,38 @@ GS_MIN_PSNR_GAIN = 10.0
 GS_KNN_SAMPLE = 10_000
 GS_CAP_Z = 3.55  # faces with a centroid below it are cut off the sphere (z 3.4-4.6)
 GS_KNOB_ITERS = 5
+# The strips (phase 11): the full-width frame blended as D_g strips of
+# ceil(T / D_g) tiles, each one launch with its tile_base. 6,400 tiles: D_g = 3
+# leaves the last strip with two tiles of padding.
+STRIP_SPLITS = (2, 3, 4)
+STRIP_GRAD_RTOL = 1e-6  # of each field's inf-norm
+# The distributed steps (phase 12): ranks that share the one card over gloo.
+# (a) camera DP on DIST_CAM_RANKS ranks x DIST_B cameras, (b) gauss2d on a
+# cam = 2 x gauss = 2 mesh; one SGD(lr 1) step, whose gradients (captured as
+# the step applies them) are held to the single-process step's mean gradient
+# at tests/test_gauss2d.py's rtol and atol 2e-4 of each leaf's inf-norm, then
+# DIST_ADAM_STEPS Adam steps. That file's 1e-6 floor on atol covers reading
+# gradients back as params_before - params_after, which capturing avoids; at
+# full width most leaves' gradients are below 1e-6, so the floor here is
+# DIST_ATOL_FLOOR, under which only rounding noise lies (complex2d's
+# gradients at the rest state are about 1e-13).
+DIST_CAM_RANKS = 2
+DIST_B = 2
+DIST_GAUSS = 2
+DIST_ADAM_STEPS = 5
+DIST_TIMED_STEPS = 2  # Adam steps after those, each collective timed alone
+DIST_RTOL = 2e-4
+DIST_ATOL_FLOOR = 1e-9
+DIST_TIMEOUT_S = 400
+# The tools (phase 13): a rigid T (a rotation about the world origin, 4 m
+# from the sphere, and a shift) that moves the sphere's vertices by about a
+# centimetre, about one vertex spacing (9 mm between latitude rings), small
+# enough for ICP to lock onto the true correspondences.
+TOOLS_T_ANGLE = 0.002  # rad about (1, 2, 2) / 3
+TOOLS_T_SHIFT = (0.0012, -0.0008, 0.0015)  # m
+TOOLS_MAX_T_ERR = 1e-5
+TOOLS_MIN_PSNR = 40.0  # dB, the moved model's render against the moved camera's
+TOOLS_BENCH_ITERS = 10
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -291,17 +358,17 @@ def timed_call(torch, fn):
     return out, a.elapsed_time(b)
 
 
-def check_forward(torch, bc, inputs, channels, label, fwd_only=False):
+def check_forward(torch, bc, inputs, channels, label, fwd_only=False, tile_base=0):
     """(plain raw state, the kernel's split for the backward, max |error| of
     colour and T, the plain call's ms). `fwd_only`: the kernel runs as a
     forward-only render calls it, blend_raw under no_grad (split None)."""
     pd, start, count, gx, W, H = inputs
     if fwd_only:
         with torch.no_grad():
-            raw_k, split = bc.blend_raw(pd, start, count, gx, W, H, channels), None
+            raw_k, split = bc.blend_raw(pd, start, count, gx, W, H, channels, tile_base), None
     else:
-        raw_k, split = bc.blend_fwd_split(pd, start, count, gx, W, H, channels)
-    raw_p, plain_ms = timed_call(torch, lambda: bc.blend_fwd_plain(pd, start, count, gx, W, H, channels))
+        raw_k, split = bc.blend_fwd_split(pd, start, count, gx, W, H, channels, tile_base)
+    raw_p, plain_ms = timed_call(torch, lambda: bc.blend_fwd_plain(pd, start, count, gx, W, H, channels, tile_base))
     rows = [0, 1, 2, 3, 6]
     err = float((raw_k[:, rows] - raw_p[:, rows]).abs().max())
     nc_bad = float((raw_k[:, 4] != raw_p[:, 4]).float().mean())
@@ -313,16 +380,14 @@ def check_forward(torch, bc, inputs, channels, label, fwd_only=False):
     return raw_p, split, err, plain_ms
 
 
-def check_backward(torch, bc, inputs, channels, raw, split, label):
+def check_backward(torch, bc, inputs, channels, raw, split, label, tile_base=0):
     """(max |error| of the gradients, the plain call's ms). The kernel reads
     the forward's test bits (`split`), as the main path's backward does."""
     pd, start, count, gx, W, H = inputs
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    ct = torch.zeros_like(raw)
-    for row in (0, 1, 2, 3, 6):
-        ct[:, row] = torch.randn(ct[:, row].shape, generator=gen, device="cuda")
-    g_k = bc.blend_bwd_cuda(pd, start, count, gx, W, H, channels, raw, ct, split)
-    g_p, plain_ms = timed_call(torch, lambda: bc.blend_bwd_plain(pd, start, count, gx, W, H, channels, raw, ct))
+    ct = seeded_cotangent(torch, raw, 7)
+    g_k = bc.blend_bwd_cuda(pd, start, count, gx, W, H, channels, raw, ct, split, tile_base)
+    g_p, plain_ms = timed_call(torch, lambda: bc.blend_bwd_plain(pd, start, count, gx, W, H, channels, raw, ct,
+                                                                 tile_base))
     worst = 0.0
     max_abs = float((g_k - g_p).abs().max())
     for row in range(6 + channels):
@@ -337,6 +402,16 @@ def check_backward(torch, bc, inputs, channels, raw, split, label):
     log("bwd", f"{label} c{channels}: max |d grad| / |grad|_inf = {worst:.3e}, max |d grad| = {max_abs:.3e} "
                f"(rtol 1e-3, atol 1e-3 |g|_inf)")
     return max_abs, plain_ms
+
+
+def seeded_cotangent(torch, raw, seed):
+    """A cotangent of the raw state: seeded normals on the rows the loss
+    reads (colour, final T, depth), zeros elsewhere."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ct = torch.zeros_like(raw)
+    for row in (0, 1, 2, 3, 6):
+        ct[:, row] = torch.randn(ct[:, row].shape, generator=gen, device="cuda")
+    return ct
 
 
 def walk_counts(torch, bc, inputs, raw):
@@ -1220,7 +1295,348 @@ def kernel_phases(torch, bc, t_start):
                    f"slots loaded fwd {walk['fwd_slots']} bwd {walk['bwd_slots']}; "
                    f"bounds fwd {fwd_bound[0]:.4f} ms ({fwd_bound[1]}) bwd {bwd_bound[0]:.4f} ms ({bwd_bound[1]}); "
                    f"median step {median_ms:.2f} ms; total {time.perf_counter() - t_start:.1f} s")
-    return kernels
+    return kernels, median_ms
+
+
+def strip_inputs(torch, inputs, d, g):
+    """(strip g of d's blend inputs, its tile_base): tiles [g tpd, (g + 1) tpd)
+    of the full grid's, tpd = ceil(T / d), the tail past the grid padded
+    with empty tiles. tile_start still indexes the whole pair_data."""
+    pd, start, count, gx, W, H = inputs
+    n = start.shape[0]
+    tpd = -(-n // d)
+    t0, t1 = min(g * tpd, n), min((g + 1) * tpd, n)
+    s = torch.zeros(tpd, dtype=torch.int32, device=start.device)
+    c = torch.zeros(tpd, dtype=torch.int32, device=start.device)
+    s[: t1 - t0] = start[t0:t1]
+    c[: t1 - t0] = count[t0:t1]
+    return (pd, s, c, gx, W, H), g * tpd
+
+
+def strips_phase(torch, bc, scene):
+    """Phase 11: the full-width frame (camera 0, 4 channels) blended as
+    STRIP_SPLITS strips through both kernels with tile_base, against the
+    full-grid launch; one strip against the plain versions. Returns
+    {kernel: launches} of the strip launches and the kernels' max |error|
+    against the plain versions."""
+    from gaustar_tpu_torch.cameras import index_camera
+    from gaustar_tpu_torch.utils.synthetic import blend_inputs, render_inputs
+
+    params, config, data = scene
+    inputs = blend_inputs(*render_inputs(params, config, index_camera(data.cameras, 0)), 4)
+    pd, start, count, gx, W, H = inputs
+    n = start.shape[0]
+    raw_full, split_full = bc.blend_fwd_split(*inputs, 4)
+    ct = seeded_cotangent(torch, raw_full, 13)
+    g_full = bc.blend_bwd_cuda(*inputs, 4, raw_full, ct, split_full)
+    torch.cuda.synchronize()
+    scale = g_full.abs().amax(dim=1).clamp_min(1e-30)
+    bc.reset_launch_counts()
+    strips = {}
+    for d in STRIP_SPLITS:
+        raws, grads, calls = [], torch.zeros_like(g_full), []
+        for g in range(d):
+            s_in, base = strip_inputs(torch, inputs, d, g)
+            raw, split = bc.blend_fwd_split(*s_in, 4, base)
+            live = min(n - base, raw.shape[0])
+            cts = torch.zeros_like(raw)
+            cts[:live] = ct[base:base + live]
+            grads += bc.blend_bwd_cuda(*s_in, 4, raw, cts, split, base)
+            raws.append(raw)
+            calls.append((s_in, base, raw, cts, split))
+        full = torch.cat(raws)
+        pad = full[n:]
+        fwd_equal = torch.equal(full[:n, :7], raw_full[:, :7])
+        pad_empty = bool((pad[:, 3] == 1).all() and (pad[:, [0, 1, 2, 4, 5, 6, 7]] == 0).all())
+        grad_rel = float(((grads - g_full).abs().amax(dim=1) / scale).max())
+        strips[d] = dict(calls=calls, fwd_equal=fwd_equal, grad_rel=grad_rel, grad_equal=torch.equal(grads, g_full),
+                         pad=pad.shape[0], pad_empty=pad_empty)
+        if not fwd_equal or not pad_empty:
+            fail(f"{d} strips: the forward differs from the full-grid launch (rows 0-6 equal {fwd_equal}, "
+                 f"padding empty {pad_empty})")
+        if not grad_rel <= STRIP_GRAD_RTOL:
+            fail(f"{d} strips: gradients differ from the full-grid launch by {grad_rel:.3e} of the inf-norm")
+    torch.cuda.synchronize()
+    launches = dict(bc.LAUNCHES)
+    expected = {"blend_fwd": sum(STRIP_SPLITS), "blend_bwd": sum(STRIP_SPLITS)}
+
+    fwd_ms = cuda_ms(torch, lambda: bc.blend_fwd_cuda(*inputs, 4), iters=20)
+    bwd_ms = cuda_ms(torch, lambda: bc.blend_bwd_cuda(*inputs, 4, raw_full, ct, split_full), iters=20)
+    for d, r in strips.items():
+        f_ms = [cuda_ms(torch, lambda c=c: bc.blend_fwd_cuda(*c[0], 4, c[1]), iters=20) for c in r["calls"]]
+        b_ms = [cuda_ms(torch, lambda c=c: bc.blend_bwd_cuda(*c[0], 4, c[2], c[3], c[4], c[1]), iters=20)
+                for c in r["calls"]]
+        log("strips", f"D_g={d}: {len(r['calls'])} strips of {r['calls'][0][0][1].shape[0]} tiles ({r['pad']} of "
+                      f"padding, empty); forward rows 0-6 bit-equal to the full grid {r['fwd_equal']}; gradients "
+                      f"max |d| / |g|_inf {r['grad_rel']:.3e}, bit-equal {r['grad_equal']}; strip ms fwd "
+                      f"{[round(x, 4) for x in f_ms]} bwd {[round(x, 4) for x in b_ms]} (full grid fwd {fwd_ms:.4f} "
+                      f"bwd {bwd_ms:.4f}; 20-call means, CUDA events)")
+    del strips
+
+    # One strip against the plain versions, on its 64 busiest tiles (phases 3-4's tolerances).
+    s_in, base = strip_inputs(torch, inputs, 3, 1)
+    s_pd, s_start, s_count = s_in[:3]
+    keep = torch.topk(s_count, 64).indices
+    s_in = (s_pd, s_start, torch.zeros_like(s_count).index_copy_(0, keep, s_count[keep]), *s_in[3:])
+    raw, split, fwd_err, _ = check_forward(torch, bc, s_in, 4, f"strip 2 of 3 (tile_base {base}), top-64 tiles",
+                                           tile_base=base)
+    bwd_err, _ = check_backward(torch, bc, s_in, 4, raw, split, f"strip 2 of 3 (tile_base {base}), top-64 tiles",
+                                tile_base=base)
+    log("strips", f"launches {launches}, expected {expected} (one forward and one backward per strip)")
+    if launches != expected:
+        fail(f"the strips launched the kernels {launches}, expected {expected}")
+    return launches, {"blend_fwd": fwd_err, "blend_bwd": bwd_err}
+
+
+def dist_rank(rank, world, init, out, mode):
+    """One rank of phase 12 (a spawned process; every rank on the one card,
+    gloo). `mode` "camera_dp": make_sharded_train_step, DIST_B cameras a
+    rank; "gauss2d": make_gauss2d_train_step on cam = world / DIST_GAUSS x
+    gauss = DIST_GAUSS, one camera a rank. One SGD(lr 1) step, whose
+    gradients (captured as the step applies them) are held to this
+    process's single-process step on the same cameras, then DIST_ADAM_STEPS
+    Adam steps and DIST_TIMED_STEPS with the collectives timed. Writes its
+    report to out/rank<r>.pt."""
+    import torch
+
+    from gaustar_tpu_torch.models import sugar
+    from gaustar_tpu_torch.ops import blend_cuda as bc
+    from gaustar_tpu_torch.parallel import collectives, gauss2d, launch, sharding
+    from gaustar_tpu_torch.train import refine
+    from gaustar_tpu_torch.train.optimizer import OptimizationParams, adam, adam_init, make_lr_fn, sgd
+    from gaustar_tpu_torch.utils.synthetic import reference_scene
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launch.initialize(rank, world, init)
+    params, config, data, rcfg = reference_scene("cuda")
+    cfg = refine.RefineConfig(num_iterations=100, loose_bind_from=10**9, do_sh_warmup=False)
+    sh_deg = config.sh_levels - 1
+    lr_fn = make_lr_fn(OptimizationParams(), 1.0)
+    n_cams = data.gt_images.shape[0]
+    if mode == "camera_dp":
+        mesh = sharding.make_camera_mesh()
+        p = sugar.fresh_params(params)
+        rows = slice(None)
+        cams = list(range(DIST_B))
+        ref_cams = list(range(n_cams))
+        make = lambda update: sharding.make_sharded_train_step(config, data, cfg, rcfg, update, mesh)  # noqa: E731
+    else:
+        mesh = launch.make_mesh(gauss=DIST_GAUSS)
+        p, _ = gauss2d.shard_sugar(params, config, mesh.gauss, mesh.gauss_rank)
+        rows = gauss2d.shard_bounds(params.scales.shape[0], mesh.gauss, mesh.gauss_rank)
+        cams = 0
+        ref_cams = [c * (n_cams // mesh.cam) for c in range(mesh.cam)]
+        make = lambda update: gauss2d.make_gauss2d_train_step(config, data, cfg, update, mesh)  # noqa: E731
+    grads = {}
+
+    def sgd_captured(params_, grads_, state):
+        grads.update({k: g.clone() for k, g in grads_.items()})
+        sgd(1.0)(params_, grads_, state)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bc.reset_launch_counts()
+    collectives.reset_counters()
+    t0 = time.perf_counter()
+    loss_sgd, aux = make(sgd_captured)(sh_deg)(p, None, cams, 1)
+    torch.cuda.synchronize()
+    sgd_wall = time.perf_counter() - t0
+    opt = adam_init(p)
+    step = make(adam(lr_fn))(sh_deg)
+    collectives.reset_counters()
+    walls, losses = [], []
+    for it in range(2, 2 + DIST_ADAM_STEPS):
+        t0 = time.perf_counter()
+        loss, aux = step(p, opt, cams, it)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    step_bytes = {k: v / DIST_ADAM_STEPS for k, v in collectives.BYTES.items()}
+    # The collectives' share of a step: each one timed alone, the card synchronised around it.
+    collectives.reset_counters(timed=True)
+    timed_walls = []
+    for it in range(2 + DIST_ADAM_STEPS, 2 + DIST_ADAM_STEPS + DIST_TIMED_STEPS):
+        t0 = time.perf_counter()
+        loss, aux = step(p, opt, cams, it)
+        torch.cuda.synchronize()
+        timed_walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    step_coll_s = {k: v / DIST_TIMED_STEPS for k, v in collectives.SECONDS.items()}
+    collectives.reset_counters()
+    launches = dict(bc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # The single-process step on the same cameras, in this process.
+    loss_ref, _ = refine.compute_losses_multi(params, config, data, ref_cams, 1, cfg, rcfg, sh_deg)
+    g_ref = refine.named_grads(loss_ref, params)
+    errs, worst = {}, 0.0
+    for k, g in grads.items():
+        a = g_ref[k] if k == "points" else g_ref[k][rows]
+        scale = float(a.abs().max())
+        excess = (g - a).abs() - DIST_RTOL * a.abs() - max(DIST_RTOL * scale, DIST_ATOL_FLOOR)
+        errs[k] = (float((g - a).abs().max()), scale)
+        worst = max(worst, float(excess.max()))
+    torch.save({"rank": rank, "cam_rank": mesh.cam_rank, "gauss_rank": mesh.gauss_rank,
+                "backend": launch.runtime_info()["backend"], "loss_sgd": float(loss_sgd), "loss_ref": float(loss_ref.detach()),
+                "grad_err": errs, "ok": worst <= 0.0, "adam_losses": losses, "sgd_wall": sgd_wall, "walls": walls,
+                "timed_walls": timed_walls, "step_coll_s": step_coll_s, "num_pairs": aux["num_pairs"], "step_bytes": step_bytes, "launches": launches, "peak_gb": peak},
+               os.path.join(out, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def dist_phase(torch):
+    """Phase 12: the camera-DP and gauss2d steps at full width, on ranks
+    spawned on the one card (gloo, file:// rendezvous in a temporary
+    directory). Returns {kernel: launches} summed over every rank."""
+    import torch.multiprocessing as mp
+
+    total = {"blend_fwd": 0, "blend_bwd": 0}
+    steps = 1 + DIST_ADAM_STEPS + DIST_TIMED_STEPS
+    runs = (("camera_dp", DIST_CAM_RANKS, steps * DIST_B), ("gauss2d", 2 * DIST_GAUSS, steps))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as root:
+        for mode, world, per_rank in runs:
+            out = os.path.join(root, mode)
+            os.makedirs(out)
+            t0 = time.perf_counter()
+            ctx = mp.start_processes(dist_rank, args=(world, f"file://{os.path.join(out, 'rendezvous')}", out, mode),
+                                     nprocs=world, join=False, start_method="spawn")
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > DIST_TIMEOUT_S:
+                    for proc in ctx.processes:
+                        proc.kill()
+                    fail(f"{mode}: the ranks did not finish in {DIST_TIMEOUT_S} s")
+            wall = time.perf_counter() - t0
+            ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+            expected = {"blend_fwd": per_rank, "blend_bwd": per_rank}
+            for r in ranks:
+                log("dist", f"{mode} rank {r['rank']} (cam {r['cam_rank']}, gauss {r['gauss_rank']}; {world} ranks "
+                            f"sharing one card over {r['backend']}): SGD step loss {r['loss_sgd']:.6f} vs the "
+                            f"single-process step's {r['loss_ref']:.6f}; gradients (max |d|, |g|_inf) "
+                            f"{ {k: (float(f'{d:.2e}'), float(f'{g:.2e}')) for k, (d, g) in r['grad_err'].items()} } "
+                            f"within rtol {DIST_RTOL}, atol max({DIST_RTOL} |g|_inf, {DIST_ATOL_FLOOR}) {r['ok']}; step wall SGD {1e3 * r['sgd_wall']:.1f} ms, Adam "
+                            f"{[round(1e3 * w, 1) for w in r['walls']]} ms (median "
+                            f"{1e3 * statistics.median(r['walls']):.1f}); Adam losses "
+                            f"{[round(x, 6) for x in r['adam_losses']]}; bytes per step into collectives "
+                            f"{ {k: int(v) for k, v in r['step_bytes'].items()} }; collectives timed alone (card "
+                            f"synchronised around each) ms per step "
+                            f"{ {k: round(1e3 * v, 2) for k, v in r['step_coll_s'].items()} } of timed step walls "
+                            f"{[round(1e3 * w, 1) for w in r['timed_walls']]} ms, share "
+                            f"{sum(r['step_coll_s'].values()) / statistics.mean(r['timed_walls']):.3f}; num_pairs {r['num_pairs']}; peak "
+                            f"{r['peak_gb']:.2f} GiB; launches {r['launches']}")
+                if not r["ok"]:
+                    fail(f"{mode} rank {r['rank']}: the gradients differ from the single-process step's")
+                if abs(r["loss_sgd"] - r["loss_ref"]) > 1e-4 * abs(r["loss_ref"]):
+                    fail(f"{mode} rank {r['rank']}: loss {r['loss_sgd']} vs {r['loss_ref']}")
+                if not all(np.isfinite(r["adam_losses"])):
+                    fail(f"{mode} rank {r['rank']}: non-finite Adam loss {r['adam_losses']}")
+                if r["launches"] != expected:
+                    fail(f"{mode} rank {r['rank']} launched the kernels {r['launches']}, expected {expected}")
+                for k in total:
+                    total[k] += r["launches"][k]
+            log("dist", f"{mode}: {world} ranks, phase wall {wall:.1f} s (spawn, scene, steps, reference); launches "
+                        f"per rank as expected {expected} ({per_rank // steps} camera(s) x {steps} steps)")
+    return total
+
+
+def tools_phase(torch, bc, scene, refine_median_ms):
+    """Phase 13: registration on the card (ICP recovers a known rigid T from
+    the model's vertices; the moved model's render against the moved
+    camera's), the model cut and recolour, profiling.loop_bench of the
+    refine step against phase 5's median, and profiling.trace of one step.
+    Returns {kernel: launches} of the phase."""
+    from gaustar_tpu_torch.cameras import Camera, index_camera
+    from gaustar_tpu_torch.models import sugar
+    from gaustar_tpu_torch.ops.sh import sh_to_rgb_dc
+    from gaustar_tpu_torch.tools import registration as reg
+    from gaustar_tpu_torch.train import refine
+    from gaustar_tpu_torch.train.optimizer import OptimizationParams, adam_init, make_lr_fn
+    from gaustar_tpu_torch.utils import profiling
+
+    params, config, data = scene
+    axis = np.array([1.0, 2.0, 2.0]) / 3.0
+    kx = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    T = np.eye(4)
+    T[:3, :3] = np.eye(3) + np.sin(TOOLS_T_ANGLE) * kx + (1 - np.cos(TOOLS_T_ANGLE)) * kx @ kx
+    T[:3, 3] = TOOLS_T_SHIFT
+    bc.reset_launch_counts()
+    moved = reg.transform_model(params, config, T)
+    src = params.points.detach().double().cpu().numpy()
+    dst = moved.points.detach().double().cpu().numpy()
+    t0 = time.perf_counter()
+    T_est, hist = reg.icp(src, dst)
+    icp_ms = 1e3 * (time.perf_counter() - t0)
+    t_err = float(np.abs(T_est - T).max())
+
+    cam = index_camera(data.cameras, 0)
+    w2c = np.eye(4)
+    w2c[:3, :3] = cam.R.T.cpu().numpy()
+    w2c[:3, 3] = cam.T.cpu().numpy()
+    w2c_moved = w2c @ np.linalg.inv(T)  # the camera moved with the model
+    cam_moved = Camera.from_w2c(w2c_moved, float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy),
+                                cam.width, cam.height, device="cuda")
+    with torch.no_grad():
+        img, aux = sugar.render(moved, config, cam_moved, bg=(0.0, 1.0, 0.0))
+        img0, _ = sugar.render(params, config, cam, bg=(0.0, 1.0, 0.0))
+    mse = float(((img - img0) ** 2).mean())
+    psnr = -10.0 * np.log10(max(mse, 1e-30))
+    cut_p, cut_c = reg.cut_model_by_box(params, config, np.array([[-10.0, -10.0, -10.0], [10.0, 0.0, 10.0]]))
+    red = reg.recolor_model(cut_p, factor=(0.0, 0.0, 0.0), offset=(1.0, 0.0, 0.0))
+    rgb = sh_to_rgb_dc(red.sh_dc.detach())
+    log("tools", f"registration: ICP on {len(src)} vertices recovered T (angle {TOOLS_T_ANGLE} rad, shift "
+                 f"{TOOLS_T_SHIFT} m) to max |d T| {t_err:.2e} in {len(hist)} iterations, {icp_ms:.1f} host ms, "
+                 f"rms {hist[0]:.3e} -> {hist[-1]:.3e}; the moved model's render against the moved camera's: "
+                 f"PSNR {psnr:.2f} dB, {aux.num_pairs} pairs; cut to y < 0: {cut_c.faces.shape[0]} of "
+                 f"{config.faces.shape[0]} faces; recolour red: max |rgb - (1, 0, 0)| "
+                 f"{float((rgb - torch.tensor([1.0, 0.0, 0.0], device='cuda')).abs().max()):.2e}")
+    if not t_err <= TOOLS_MAX_T_ERR:
+        fail(f"ICP did not recover the transform: max |d T| {t_err:.3e}")
+    if not psnr >= TOOLS_MIN_PSNR:
+        fail(f"the moved model's render differs from the moved camera's: PSNR {psnr:.2f} dB")
+    if not 0 < cut_c.faces.shape[0] < config.faces.shape[0] or cut_p.scales.shape[0] != 6 * cut_c.faces.shape[0]:
+        fail(f"the cut kept {cut_c.faces.shape[0]} faces")
+    if not float((rgb - torch.tensor([1.0, 0.0, 0.0], device="cuda")).abs().max()) < 1e-5:
+        fail("recolor_model did not set the colour")
+
+    cfg = refine.RefineConfig(num_iterations=ITERS, loose_bind_from=10**9, do_sh_warmup=False)
+    p = sugar.fresh_params(params)
+    opt = adam_init(p)
+    lr_fn = make_lr_fn(OptimizationParams(), 1.0)
+    rcfg = refine.RasterConfig()
+
+    def one_step(i):
+        refine.train_step(p, opt, lr_fn, config, data, i % data.gt_images.shape[0], i + 1, cfg, rcfg, 2)
+
+    bench_ms = 1e3 * profiling.loop_bench(one_step, iters=TOOLS_BENCH_ITERS, device="cuda")
+    host_ms = []  # the same steps on the host clock, synchronised each step, as phase 5 times them
+    for i in range(TOOLS_BENCH_ITERS):
+        t0 = time.perf_counter()
+        one_step(i)
+        torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tdir:
+        with profiling.trace(tdir) as tr:
+            one_step(0)
+        from torch.autograd import DeviceType
+
+        names = [e.name for e in tr.prof.events() if e.device_type == DeviceType.CUDA]
+        blend = sorted({m.group(0) for m in (re.search(r"blend_\w+", x) for x in names) if m})
+        trace_kb = os.path.getsize(os.path.join(tdir, "trace.json")) / 1024
+    torch.cuda.synchronize()
+    launches = dict(bc.LAUNCHES)
+    steps = 1 + 2 * TOOLS_BENCH_ITERS + 1
+    expected = {"blend_fwd": 2 + steps, "blend_bwd": steps}
+    log("tools", f"profiling.loop_bench: refine step {bench_ms:.2f} ms per iteration ({TOOLS_BENCH_ITERS} "
+                 f"iterations between CUDA events) against phase 5's median {refine_median_ms:.2f} ms (host "
+                 f"clock) and this phase's host-clock median of the next {TOOLS_BENCH_ITERS} steps "
+                 f"{statistics.median(host_ms):.2f} ms; profiling.trace of one step: {len(names)} CUDA kernel events, blend kernels {blend}, "
+                 f"{trace_kb:.0f} KiB Chrome trace; launches {launches}, expected {expected} (2 renders, "
+                 f"{steps} steps)")
+    if not blend:
+        fail("the trace shows no blend kernel")
+    if launches != expected:
+        fail(f"phase 13 launched the kernels {launches}, expected {expected}")
+    return launches
 
 
 def main() -> int:
@@ -1251,7 +1667,7 @@ def main() -> int:
         log("build", f"{name}: {entry['seconds']:.1f} s; " + " | ".join(usage))
     log("build", f"wall {time.perf_counter() - t0:.1f} s")
 
-    kernels = kernel_phases(torch, bc, t_start)
+    kernels, median_ms = kernel_phases(torch, bc, t_start)
     # 7 the topology event, then the native library on its fused mesh
     t0 = time.perf_counter()
     topo_launches, fwd_only_err, fused = topo_phase(torch, bc)
@@ -1273,11 +1689,32 @@ def main() -> int:
     # 10 vanilla 3DGS, evaluation, the border postprocess, the knobs, a composite
     with tempfile.TemporaryDirectory(prefix="chip_smoke_gs_") as root:
         gs_launches = gs_phase(torch, bc, root)
+    torch.cuda.empty_cache()
+    # 11 strips: the kernels' tile_base
+    from gaustar_tpu_torch.utils.synthetic import reference_scene
+
+    t0 = time.perf_counter()
+    scene = reference_scene("cuda")[:3]
+    strip_launches, strip_errs = strips_phase(torch, bc, scene)
+    log("strips", f"phase wall {time.perf_counter() - t0:.1f} s")
+    # 12 dist: the camera-DP and gauss2d steps on ranks sharing the card
+    t0 = time.perf_counter()
+    dist_launches = dist_phase(torch)
+    log("dist", f"phase wall {time.perf_counter() - t0:.1f} s")
+    # 13 tools: registration and profiling
+    t0 = time.perf_counter()
+    tools_launches = tools_phase(torch, bc, scene, median_ms)
+    log("tools", f"phase wall {time.perf_counter() - t0:.1f} s")
+    del scene
     for k in kernels:
         k["launches_topo"] = topo_launches[k["name"]]
         k["launches_seq"] = seq_launches[k["name"]]
         k["launches_prep"] = prep_launches.get(k["name"], 0)
         k["launches_gs"] = gs_launches[k["name"]]
+        k["launches_strips"] = strip_launches[k["name"]]
+        k["launches_dist"] = dist_launches[k["name"]]
+        k["launches_tools"] = tools_launches[k["name"]]
+        k["max_abs_err_strip"] = strip_errs[k["name"]]
     kernels[0]["max_abs_err_fwd_only"] = fwd_only_err
     log("done", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,6 +15,7 @@ import torch
 from gaustar_tpu_torch.cameras import Camera
 from gaustar_tpu_torch.models import gaussians, neural_field, sugar
 from gaustar_tpu_torch.ops import segment
+from gaustar_tpu_torch.parallel import gauss2d
 from gaustar_tpu_torch.train.refine import FrameData
 from gaustar_tpu_torch.utils.general import resolve_device
 
@@ -22,6 +23,15 @@ from gaustar_tpu_torch.utils.general import resolve_device
 def sugar_params_from_numpy(arrays: dict, device="cuda") -> sugar.SuGaRParams:
     """SuGaRParams (fresh leaves requiring grad) from {field: array}."""
     return sugar.make_params(arrays, resolve_device(device))
+
+
+def sugar_shard_from_numpy(arrays: dict, d_gauss: int, rank: int, device="cuda") -> sugar.SuGaRParams:
+    """Rank `rank`'s shard of the gauss axis, cut as parallel/gauss2d.py:
+    shard_sugar cuts it (every per-gaussian leaf in d_gauss blocks of whole
+    faces, `points` whole), from {field: array} of the JAX SuGaRParams."""
+    rows = gauss2d.shard_bounds(len(arrays["scales"]), d_gauss, rank)
+    return sugar_params_from_numpy({k: np.asarray(v) if k == "points" else np.asarray(v)[rows]
+                                    for k, v in arrays.items()}, device)
 
 
 def gaussian_params_from_numpy(arrays: dict, device="cuda") -> gaussians.GaussianParams:

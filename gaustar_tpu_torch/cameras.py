@@ -25,6 +25,14 @@ import torch
 from gaustar_tpu_torch.utils.general import resolve_device
 
 
+def fov2focal(fov, pixels):
+    return pixels / (2.0 * np.tan(fov / 2.0))
+
+
+def focal2fov(focal, pixels):
+    return 2.0 * np.arctan(pixels / (2.0 * focal))
+
+
 @dataclasses.dataclass(frozen=True)
 class Camera:
     R: torch.Tensor  # [3, 3] c2w rotation

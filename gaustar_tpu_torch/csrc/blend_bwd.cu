@@ -80,7 +80,7 @@ template <int CH>
 __global__ void __launch_bounds__(SERIAL) blend_scan_kernel(
     const float* __restrict__ pair_data, long long stride, const int* __restrict__ tile_start,
     const int* __restrict__ tile_count, const int* __restrict__ ends, int n_tiles, int grid_x,
-    const float* __restrict__ fwd, const unsigned* __restrict__ bits, float* __restrict__ states) {
+    int tile_base, const float* __restrict__ fwd, const unsigned* __restrict__ bits, float* __restrict__ states) {
   constexpr int NF = 6 + CH;
   constexpr int NS = 2 + 2 * CH;
   __shared__ float s_pair[2][NF][SEG];
@@ -98,8 +98,9 @@ __global__ void __launch_bounds__(SERIAL) blend_scan_kernel(
   float* st = states + (size_t)(ends[2 * n_tiles + tile] - (nseg - 1)) * NS * PIX + tid;
   const float* f = fwd + (size_t)tile * ROWS * PIX;
   const int nc = (int)f[4 * PIX + tid];
-  const float px = (float)((tile % grid_x) * TILE + tid % TILE);
-  const float py = (float)((tile / grid_x) * TILE + tid / TILE);
+  const int gt = tile + tile_base;  // the tile's place in the image
+  const float px = (float)((gt % grid_x) * TILE + tid % TILE);
+  const float py = (float)((gt / grid_x) * TILE + tid / TILE);
 
   float T = f[3 * PIX + tid];
   float acc[CH], last_c[CH];
@@ -180,7 +181,7 @@ template <int CH>
 __global__ void __launch_bounds__(PIX) blend_grad_kernel(
     const float* __restrict__ pair_data, long long stride, const int* __restrict__ tile_start,
     const int* __restrict__ tile_count, const int* __restrict__ ends, int n_tiles, int grid_x,
-    const float* __restrict__ fwd, const float* __restrict__ dout, const unsigned* __restrict__ bits,
+    int tile_base, const float* __restrict__ fwd, const float* __restrict__ dout, const unsigned* __restrict__ bits,
     const float* __restrict__ states, float* __restrict__ grads) {
   constexpr int NF = 6 + CH;
   constexpr int NS = 2 + 2 * CH;
@@ -212,8 +213,9 @@ __global__ void __launch_bounds__(PIX) blend_grad_kernel(
   float d_c[CH];
 #pragma unroll
   for (int c = 0; c < CH; ++c) d_c[c] = g[state_row(c) * PIX + tid];
-  const float px = (float)((tile % grid_x) * TILE + tid % TILE);
-  const float py = (float)((tile / grid_x) * TILE + tid / TILE);
+  const int gt = tile + tile_base;  // the tile's place in the image
+  const float px = (float)((gt % grid_x) * TILE + tid % TILE);
+  const float py = (float)((gt / grid_x) * TILE + tid / TILE);
 
   float T, last_alpha;
   float acc[CH], last_c[CH];
@@ -302,15 +304,15 @@ __global__ void __launch_bounds__(PIX) blend_grad_kernel(
 
 template <int CH>
 int launch(const float* pair_data, long long stride, const int* tile_start, const int* tile_count,
-           const int* ends, int n_tiles, int n_items, int grid_x, const float* fwd, const float* dout,
-           const unsigned* bits, float* states, float* grads, cudaStream_t s) {
+           const int* ends, int n_tiles, int n_items, int grid_x, int tile_base, const float* fwd,
+           const float* dout, const unsigned* bits, float* states, float* grads, cudaStream_t s) {
   blend_scan_kernel<CH><<<n_tiles * SERIAL_BLOCKS, SERIAL, 0, s>>>(pair_data, stride, tile_start, tile_count, ends, n_tiles,
-                                                grid_x, fwd, bits, states);
+                                                grid_x, tile_base, fwd, bits, states);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (n_items > 0) {
     blend_grad_kernel<CH><<<n_items, PIX, 0, s>>>(pair_data, stride, tile_start, tile_count, ends, n_tiles,
-                                                  grid_x, fwd, dout, bits, states, grads);
+                                                  grid_x, tile_base, fwd, dout, bits, states, grads);
   }
   return (int)cudaGetLastError();
 }
@@ -319,8 +321,9 @@ int launch(const float* pair_data, long long stride, const int* tile_start, cons
 }  // namespace blend
 
 // pair_data [F, stride] float32 SoA (F >= 6 + channels); tile_start,
-// tile_count [n_tiles] int32, whose lists lie in the stride columns; ends
-// [3, n_tiles] int32 and n_items from split_plan with segments of `seg`
+// tile_count [n_tiles] int32, whose lists lie in the stride columns; tile t
+// of the call is tile t + tile_base of the image's grid_x-wide grid, as in
+// blend_fwd; ends [3, n_tiles] int32 and n_items from split_plan with segments of `seg`
 // pairs (must be blend::SEG); fwd (the forward's raw state) and dout (its
 // cotangent) [n_tiles, 8, 256] float32; bits [words of split_plan, 256]
 // 32-bit words, the test bits that blend_fwd wrote for these inputs; states
@@ -329,16 +332,16 @@ int launch(const float* pair_data, long long stride, const int* tile_start, cons
 // returns the first launch error (cudaError_t), or 0.
 extern "C" int blend_bwd(const float* pair_data, long long stride, const int* tile_start,
                          const int* tile_count, const int* ends, int n_tiles, int n_items, int seg,
-                         int grid_x, int channels, const float* fwd, const float* dout,
+                         int grid_x, int tile_base, int channels, const float* fwd, const float* dout,
                          const unsigned* bits, float* states, float* grads, void* stream) {
   if (seg != blend::SEG) return (int)cudaErrorInvalidValue;
   if (n_tiles <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (channels == 3)
     return blend::launch<3>(pair_data, stride, tile_start, tile_count, ends, n_tiles, n_items, grid_x,
-                            fwd, dout, bits, states, grads, s);
+                            tile_base, fwd, dout, bits, states, grads, s);
   if (channels == 4)
     return blend::launch<4>(pair_data, stride, tile_start, tile_count, ends, n_tiles, n_items, grid_x,
-                            fwd, dout, bits, states, grads, s);
+                            tile_base, fwd, dout, bits, states, grads, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -86,7 +86,7 @@ __device__ __forceinline__ bool pair_passes(float power, float op, float cut) {
 __global__ void __launch_bounds__(PIX) blend_test_kernel(
     const float* __restrict__ pair_data, long long stride, const int* __restrict__ tile_start,
     const int* __restrict__ tile_count, const int* __restrict__ ends, int n_tiles, int grid_x,
-    int width, int height, unsigned* __restrict__ bits) {
+    int tile_base, int width, int height, unsigned* __restrict__ bits) {
   __shared__ float4 s_geo[SEG];  // x, y, conic A, conic B
   __shared__ float4 s_opa[SEG];  // conic C, opacity, alpha_cut, row_reach
   const int tid = threadIdx.x;
@@ -103,12 +103,13 @@ __global__ void __launch_bounds__(PIX) blend_test_kernel(
     s_opa[tid] = make_float4(C, op, cut, row_reach(A, B, C, cut));
   }
   __syncthreads();
-  const int ix = (tile % grid_x) * TILE + tid % TILE;
-  const int iy = (tile / grid_x) * TILE + tid / TILE;
+  const int gt = tile + tile_base;  // the tile's place in the image
+  const int ix = (gt % grid_x) * TILE + tid % TILE;
+  const int iy = (gt / grid_x) * TILE + tid / TILE;
   const bool inside = ix < width && iy < height;
   const float px = (float)ix;
   const float py = (float)iy;
-  const float warp_row = (float)((tile / grid_x) * TILE + 2 * (tid >> 5));  // a warp is two pixel rows
+  const float warp_row = (float)((gt / grid_x) * TILE + 2 * (tid >> 5));  // a warp is two pixel rows
   unsigned* out = bits + ((size_t)(ends[n_tiles + tile] - words(count)) + seg * SEG_WORDS) * PIX + tid;
   for (int w = 0; w * WORD < n; ++w) {
     unsigned word = 0;
@@ -131,7 +132,7 @@ template <int CH>
 __global__ void __launch_bounds__(SERIAL) blend_chain_kernel(
     const float* __restrict__ pair_data, long long stride, const int* __restrict__ tile_start,
     const int* __restrict__ tile_count, const int* __restrict__ ends, int n_tiles, int grid_x,
-    int width, int height, const unsigned* __restrict__ bits, float* __restrict__ out) {
+    int tile_base, int width, int height, const unsigned* __restrict__ bits, float* __restrict__ out) {
   constexpr int NF = 6 + CH;
   __shared__ float s_pair[2][NF][SEG];
   __shared__ unsigned s_bits[2][SEG_WORDS][SERIAL];
@@ -149,8 +150,9 @@ __global__ void __launch_bounds__(SERIAL) blend_chain_kernel(
   const int nseg = segments(count);
   const int nword = words(count);
   const unsigned* tb = bits + (size_t)(ends[n_tiles + tile] - nword) * PIX + tid;
-  const int ix = (tile % grid_x) * TILE + tid % TILE;
-  const int iy = (tile / grid_x) * TILE + tid / TILE;
+  const int gt = tile + tile_base;
+  const int ix = (gt % grid_x) * TILE + tid % TILE;
+  const int iy = (gt / grid_x) * TILE + tid / TILE;
   const float px = (float)ix;
   const float py = (float)iy;
   bool done = ix >= width || iy >= height;
@@ -245,16 +247,16 @@ __global__ void __launch_bounds__(SERIAL) blend_chain_kernel(
 
 template <int CH>
 int launch(const float* pair_data, long long stride, const int* tile_start, const int* tile_count,
-           const int* ends, int n_tiles, int n_items, int grid_x, int width, int height,
+           const int* ends, int n_tiles, int n_items, int grid_x, int tile_base, int width, int height,
            unsigned* bits, float* out, cudaStream_t s) {
   if (n_items > 0) {
     blend_test_kernel<<<n_items, PIX, 0, s>>>(pair_data, stride, tile_start, tile_count, ends, n_tiles,
-                                              grid_x, width, height, bits);
+                                              grid_x, tile_base, width, height, bits);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   blend_chain_kernel<CH><<<n_tiles * SERIAL_BLOCKS, SERIAL, 0, s>>>(pair_data, stride, tile_start, tile_count, ends,
-                                                 n_tiles, grid_x, width, height, bits, out);
+                                                 n_tiles, grid_x, tile_base, width, height, bits, out);
   return (int)cudaGetLastError();
 }
 
@@ -262,7 +264,9 @@ int launch(const float* pair_data, long long stride, const int* tile_start, cons
 }  // namespace blend
 
 // pair_data [F, stride] float32 SoA (F >= 6 + channels); tile_start,
-// tile_count [n_tiles] int32, whose lists lie in the stride columns; ends
+// tile_count [n_tiles] int32, whose lists lie in the stride columns; tile t
+// of the call is tile t + tile_base of the image's grid_x-wide grid (a strip
+// of a larger image blends with its first tile's index); ends
 // [3, n_tiles] int32 and n_items, at least the number of work items, from
 // split_plan with segments of `seg` pairs (must be blend::SEG); bits, the
 // test-bit scratch, [words of split_plan, 256] 32-bit words; out
@@ -270,16 +274,16 @@ int launch(const float* pair_data, long long stride, const int* tile_start, cons
 // `stream` and returns the first launch error (cudaError_t), or 0.
 extern "C" int blend_fwd(const float* pair_data, long long stride, const int* tile_start,
                          const int* tile_count, const int* ends, int n_tiles, int n_items, int seg,
-                         int grid_x, int width, int height, int channels, unsigned* bits, float* out,
-                         void* stream) {
+                         int grid_x, int tile_base, int width, int height, int channels, unsigned* bits,
+                         float* out, void* stream) {
   if (seg != blend::SEG) return (int)cudaErrorInvalidValue;
   if (n_tiles <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (channels == 3)
     return blend::launch<3>(pair_data, stride, tile_start, tile_count, ends, n_tiles, n_items, grid_x,
-                            width, height, bits, out, s);
+                            tile_base, width, height, bits, out, s);
   if (channels == 4)
     return blend::launch<4>(pair_data, stride, tile_start, tile_count, ends, n_tiles, n_items, grid_x,
-                            width, height, bits, out, s);
+                            tile_base, width, height, bits, out, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -103,6 +103,13 @@ def make_params(arrays: dict, device) -> SuGaRParams:
     )
 
 
+def fresh_params(params: SuGaRParams, **new) -> SuGaRParams:
+    """SuGaRParams of fresh leaves requiring grad: the fields in `new`
+    replaced, the others copied (the optimizer updates leaves in place, so
+    a model that must not change is never shared)."""
+    return SuGaRParams(**{k: new.get(k, v).detach().clone().requires_grad_() for k, v in params.named()})
+
+
 def init_sugar(
     verts: np.ndarray,
     faces: np.ndarray,

@@ -50,15 +50,7 @@ def bin_gaussians(g: Gaussians2D, grid_x: int, grid_y: int) -> BinnedPairs:
 
     touched = touched_all[order]
     num_pairs = int(touched.sum())  # the one host sync of a render
-    offsets = torch.cumsum(touched, 0) - touched
-
-    gi = torch.repeat_interleave(torch.arange(n, device=dev), touched, output_size=num_pairs)
-    k = torch.arange(num_pairs, device=dev) - offsets[gi]
-    rmin = g.rect_min.to(torch.int64)[order][gi]
-    rw = (g.rect_max[:, 0] - g.rect_min[:, 0]).to(torch.int64)[order][gi]
-    dy = torch.div(k, rw, rounding_mode="floor")
-    dx = k - dy * rw
-    tile = (rmin[:, 1] + dy) * grid_x + (rmin[:, 0] + dx)
+    gi, tile = expand_pairs(touched, g.rect_min[order], g.rect_max[order], grid_x, num_pairs)
 
     tile_sorted, pair_emit = torch.sort(tile, stable=True)
     gauss_idx = gi[pair_emit]
@@ -75,6 +67,21 @@ def bin_gaussians(g: Gaussians2D, grid_x: int, grid_y: int) -> BinnedPairs:
         tile_count=counts.to(torch.int32),
         num_pairs=num_pairs,
     )
+
+
+def expand_pairs(touched, rect_min, rect_max, grid_x: int, num_pairs: int):
+    """(gaussian [P], tile [P]) int64 of every (gaussian, tile) pair: each
+    gaussian in turn emits the tiles of its rect in row-major order.
+    `touched` [N] int64 sums to num_pairs."""
+    dev = touched.device
+    offsets = torch.cumsum(touched, 0) - touched
+    gi = torch.repeat_interleave(torch.arange(touched.shape[0], device=dev), touched, output_size=num_pairs)
+    k = torch.arange(num_pairs, device=dev) - offsets[gi]
+    rmin = rect_min.to(torch.int64)[gi]
+    rw = (rect_max[:, 0] - rect_min[:, 0]).to(torch.int64)[gi]
+    dy = torch.div(k, rw, rounding_mode="floor")
+    dx = k - dy * rw
+    return gi, (rmin[:, 1] + dy) * grid_x + (rmin[:, 0] + dx)
 
 
 class _PermuteRows(torch.autograd.Function):

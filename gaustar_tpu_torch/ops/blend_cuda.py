@@ -6,6 +6,10 @@ Inputs, shared by every function here:
              6.. features (F >= 6 + channels; ops/binning.gather_pair_data);
   tile_start, tile_count  [T] int32: tile t owns pairs start .. start+count,
              front to back;
+  tile_base  the image tile of the call's tile 0 (default 0): tile t's
+             pixels are those of tile t + tile_base of the grid_x-wide
+             grid, so that a strip of an image blends on its own (the JAX
+             package's blend_tiles_pallas_base; parallel/gauss2d.py);
   the raw state [T, 8, 256] float32 of the forward, as the JAX kernel's:
              rows 0-2 colour, 3 final T, 4 n_contrib (1-based list position
              of the last included pair), 5 done, 6 channel 3 (fused depth),
@@ -76,7 +80,8 @@ def _check_inputs(pair_data, tile_start, tile_count, channels):
 # ---------------------------------------------------------------------------
 
 
-def _tile_pixels(tile_ids, grid_x):
+def _tile_pixels(tile_ids, grid_x, tile_base=0):
+    tile_ids = tile_ids + tile_base
     flat = torch.arange(PIX, device=tile_ids.device)
     px = ((tile_ids % grid_x)[:, None] * TILE + flat % TILE).to(torch.float32)
     py = ((tile_ids // grid_x)[:, None] * TILE + flat // TILE).to(torch.float32)
@@ -107,7 +112,7 @@ def _eval_pair(d, px, py):
     return alpha, contrib, g, dx, dy
 
 
-def blend_fwd_plain(pair_data, tile_start, tile_count, grid_x, width, height, channels):
+def blend_fwd_plain(pair_data, tile_start, tile_count, grid_x, width, height, channels, tile_base=0):
     """Forward blend -> raw state [T, 8, 256]. Differentiable by autograd
     (with the straight-through 0.99 clamp), which the tests use to check
     blend_bwd_plain."""
@@ -118,7 +123,7 @@ def blend_fwd_plain(pair_data, tile_start, tile_count, grid_x, width, height, ch
     ids, start, count = _active_tiles(tile_start, tile_count)
     if ids.numel() == 0:
         return empty
-    px, py = _tile_pixels(ids, grid_x)
+    px, py = _tile_pixels(ids, grid_x, tile_base)
     done = (px >= width) | (py >= height)
     T = torch.ones_like(px)
     col = [torch.zeros_like(px) for _ in range(channels)]
@@ -141,7 +146,7 @@ def blend_fwd_plain(pair_data, tile_start, tile_count, grid_x, width, height, ch
     return empty.index_put((ids,), torch.stack(rows, dim=1))
 
 
-def blend_bwd_plain(pair_data, tile_start, tile_count, grid_x, width, height, channels, fwd, dout):
+def blend_bwd_plain(pair_data, tile_start, tile_count, grid_x, width, height, channels, fwd, dout, tile_base=0):
     """Backward blend: per-pair-slot gradients [F, P] from the forward's raw
     state and its cotangent (rows 0-3 and 6 are read). The formulas of
     backward.cu written out (no autograd); slots never walked stay zero."""
@@ -150,7 +155,7 @@ def blend_bwd_plain(pair_data, tile_start, tile_count, grid_x, width, height, ch
     ids, start, count = _active_tiles(tile_start, tile_count)
     if ids.numel() == 0:
         return grads
-    px, py = _tile_pixels(ids, grid_x)
+    px, py = _tile_pixels(ids, grid_x, tile_base)
     t_final = fwd[ids, 3]
     nc = fwd[ids, 4]
     d_t = dout[ids, 3]
@@ -241,8 +246,8 @@ def split_plan(tile_count, num_pairs: int, seg: int = SEG) -> SplitPlan:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# pair_data, stride, tile_start, tile_count, ends, n_tiles, n_items, seg, grid_x
-_COMMON_ARGS = [_P, _L, _P, _P, _P, _I, _I, _I, _I]
+# pair_data, stride, tile_start, tile_count, ends, n_tiles, n_items, seg, grid_x, tile_base
+_COMMON_ARGS = [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I]
 _FWD_ARGS = _COMMON_ARGS + [_I, _I, _I, _P, _P, _P]  # width, height, channels, bits, out, stream
 _BWD_ARGS = _COMMON_ARGS + [_I, _P, _P, _P, _P, _P, _P]  # channels, fwd, dout, bits, states, grads, stream
 
@@ -268,12 +273,12 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
 
 
-def _common_args(pair_data, tile_start, tile_count, plan, grid_x):
+def _common_args(pair_data, tile_start, tile_count, plan, grid_x, tile_base):
     return (pair_data.data_ptr(), pair_data.stride(0), tile_start.data_ptr(), tile_count.data_ptr(),
-            plan.ends.data_ptr(), tile_start.shape[0], plan.items, SEG, grid_x)
+            plan.ends.data_ptr(), tile_start.shape[0], plan.items, SEG, grid_x, int(tile_base))
 
 
-def blend_fwd_split(pair_data, tile_start, tile_count, grid_x, width, height, channels):
+def blend_fwd_split(pair_data, tile_start, tile_count, grid_x, width, height, channels, tile_base=0):
     """Launch csrc/blend_fwd.cu -> (raw state, split): the test of every
     (pixel, pair), one block per (tile, segment), then each tile's pixels
     composite their set bits. `split` is (plan, test bits), which the
@@ -284,19 +289,20 @@ def blend_fwd_split(pair_data, tile_start, tile_count, grid_x, width, height, ch
     dev = pair_data.device
     bits = torch.empty((plan.words, PIX), dtype=torch.int32, device=dev)
     out = torch.empty((tile_start.shape[0], STATE_ROWS, PIX), dtype=torch.float32, device=dev)
-    err = lib.blend_fwd(*_common_args(pair_data, tile_start, tile_count, plan, grid_x), width, height, channels,
-                        bits.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    err = lib.blend_fwd(*_common_args(pair_data, tile_start, tile_count, plan, grid_x, tile_base), width, height,
+                        channels, bits.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "blend_fwd")
     LAUNCHES["blend_fwd"] += 1
     return out, (plan, bits)
 
 
-def blend_fwd_cuda(pair_data, tile_start, tile_count, grid_x, width, height, channels):
+def blend_fwd_cuda(pair_data, tile_start, tile_count, grid_x, width, height, channels, tile_base=0):
     """blend_fwd_split's raw state alone."""
-    return blend_fwd_split(pair_data, tile_start, tile_count, grid_x, width, height, channels)[0]
+    return blend_fwd_split(pair_data, tile_start, tile_count, grid_x, width, height, channels, tile_base)[0]
 
 
-def blend_bwd_cuda(pair_data, tile_start, tile_count, grid_x, width, height, channels, fwd, dout, split):
+def blend_bwd_cuda(pair_data, tile_start, tile_count, grid_x, width, height, channels, fwd, dout, split,
+                   tile_base=0):
     """Launch csrc/blend_bwd.cu: each tile's chain states at its segment
     boundaries, then one block per (tile, segment) -> [F, P]. `split` is
     blend_fwd_split's of the same inputs. The arguments are blend_bwd_plain's
@@ -308,7 +314,7 @@ def blend_bwd_cuda(pair_data, tile_start, tile_count, grid_x, width, height, cha
     plan, bits = split
     states = torch.empty((max(plan.states, 1), 2 + 2 * channels, PIX), dtype=torch.float32, device=dev)
     grads = torch.zeros_like(pair_data)
-    err = lib.blend_bwd(*_common_args(pair_data, tile_start, tile_count, plan, grid_x), channels,
+    err = lib.blend_bwd(*_common_args(pair_data, tile_start, tile_count, plan, grid_x, tile_base), channels,
                         fwd.data_ptr(), dout.data_ptr(), bits.data_ptr(), states.data_ptr(),
                         grads.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "blend_bwd")
@@ -322,14 +328,16 @@ class BlendRaw(torch.autograd.Function):
     and 7 are structurally zero and never read."""
 
     @staticmethod
-    def forward(ctx, pair_data, tile_start, tile_count, grid_x, width, height, channels):
+    def forward(ctx, pair_data, tile_start, tile_count, grid_x, width, height, channels, tile_base):
         ctx.split = None
+        args = (pair_data, tile_start, tile_count, grid_x, width, height, channels)
         if pair_data.is_cuda:
-            raw, ctx.split = blend_fwd_split(pair_data, tile_start, tile_count, grid_x, width, height, channels)
+            raw, ctx.split = blend_fwd_split(*args, tile_base)
         else:
-            raw = blend_fwd_plain(pair_data, tile_start, tile_count, grid_x, width, height, channels)
+            raw = blend_fwd_plain(*args, tile_base)
         ctx.save_for_backward(pair_data, tile_start, tile_count, raw)
         ctx.meta = (grid_x, width, height, channels)
+        ctx.tile_base = tile_base
         return raw
 
     @staticmethod
@@ -337,11 +345,12 @@ class BlendRaw(torch.autograd.Function):
         pair_data, tile_start, tile_count, raw = ctx.saved_tensors
         args = (pair_data, tile_start, tile_count, *ctx.meta, raw, ct.contiguous())
         if pair_data.is_cuda:
-            grads = blend_bwd_cuda(*args, split=ctx.split)
+            grads = blend_bwd_cuda(*args, split=ctx.split, tile_base=ctx.tile_base)
         else:
-            grads = blend_bwd_plain(*args)
-        return grads, None, None, None, None, None, None
+            grads = blend_bwd_plain(*args, tile_base=ctx.tile_base)
+        return grads, None, None, None, None, None, None, None
 
 
-def blend_raw(pair_data, tile_start, tile_count, grid_x: int, width: int, height: int, channels: int):
-    return BlendRaw.apply(pair_data, tile_start, tile_count, grid_x, width, height, channels)
+def blend_raw(pair_data, tile_start, tile_count, grid_x: int, width: int, height: int, channels: int,
+              tile_base: int = 0):
+    return BlendRaw.apply(pair_data, tile_start, tile_count, grid_x, width, height, channels, tile_base)

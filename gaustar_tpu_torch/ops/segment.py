@@ -13,16 +13,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gaustar_tpu_torch.utils.general import resolve_device
 
-def gather_tables(idx, n_src: int, device="cpu"):
+
+def gather_tables(idx, n_src: int, device="cuda"):
     """Backward tables for `gather_rows`: (order [M] int64, offsets
     [n_src + 1] int64) for the flat gather index array `idx`."""
     idx = np.asarray(idx).reshape(-1)
     order = np.argsort(idx, kind="stable")
     offsets = np.searchsorted(idx[order], np.arange(n_src + 1))
+    dev = resolve_device(device)
     return (
-        torch.as_tensor(order, dtype=torch.int64, device=device),
-        torch.as_tensor(offsets, dtype=torch.int64, device=device),
+        torch.as_tensor(order, dtype=torch.int64, device=dev),
+        torch.as_tensor(offsets, dtype=torch.int64, device=dev),
     )
 
 

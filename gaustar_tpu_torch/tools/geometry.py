@@ -134,33 +134,34 @@ def resize_nearest(img: np.ndarray, height: int, width: int) -> np.ndarray:
     return img[ys[:, None], xs[None, :]]
 
 
-def _linear_taps(src: int, dst: int):
+def _linear_taps(src: int, dst: int, edge_weight: bool):
     """OpenCV's INTER_LINEAR taps along one axis: the first source index of
-    each output, its neighbour, and the float32 weight of the neighbour.
-    Half-pixel centres, f = (i + 0.5) s - 0.5 with s = 1 / (dst / src) in
-    float64 rounded to float32; outside the source the edge sample takes all
-    the weight."""
+    each output, its neighbour (both clamped into the source), and the
+    float32 weight of the neighbour. Half-pixel centres, f = (i + 0.5) s -
+    0.5 with s = 1 / (dst / src) in float64 rounded to float32. Outside the
+    source, the horizontal pass (`edge_weight`) gives the edge sample all the
+    weight; the vertical pass keeps the fraction and blends the clamped row
+    with itself, which rounds differently in fixed point."""
     f = ((np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5).astype(np.float32)
     i0 = np.floor(f).astype(np.int64)
     f = (f - i0).astype(np.float32)
-    edge = (i0 < 0) | (i0 >= src - 1)
-    i0 = np.clip(i0, 0, src - 1)
-    f[edge] = 0.0
-    return i0, np.minimum(i0 + 1, src - 1), f
+    if edge_weight:
+        f[(i0 < 0) | (i0 >= src - 1)] = 0.0
+    return np.clip(i0, 0, src - 1), np.clip(i0 + 1, 0, src - 1), f
 
 
 def resize_linear(img: np.ndarray, height: int, width: int) -> np.ndarray:
-    """cv2.resize(img, (width, height)) with INTER_LINEAR. uint8 follows
-    OpenCV's fixed-point rule exactly: weights rounded to 11 bits, the
-    horizontal pass in integers, the vertical one as its vectorized code
+    """cv2.resize(img, (width, height)) with INTER_LINEAR, up or down. uint8
+    follows OpenCV's fixed-point rule exactly: weights rounded to 11 bits,
+    the horizontal pass in integers, the vertical one as its vectorized code
     does, ((r0 >> 4) b0 >> 16) + ((r1 >> 4) b1 >> 16) rounded off by 2 bits
     (an exact halving reduces to OpenCV's 2x2 area mean, the same values).
-    Equal to cv2.resize for downscaling, which is RAFT's use; an upscale's
-    first and last rows can differ by one level. Float images blend with the
-    float32 weights."""
+    Float images blend with the float32 weights, as OpenCV's own code does;
+    OpenCV hands float32 images of 1, 3 or 4 channels to Intel IPP where its
+    build has it, whose sums round otherwise (within 2e-6 of the range)."""
     in_h, in_w = img.shape[:2]
-    x0, x1, fx = _linear_taps(in_w, width)
-    y0, y1, fy = _linear_taps(in_h, height)
+    x0, x1, fx = _linear_taps(in_w, width, True)
+    y0, y1, fy = _linear_taps(in_h, height, False)
     col = (slice(None),) + (None,) * (img.ndim - 2)  # a weight per output column
     row = (slice(None),) + (None,) * (img.ndim - 1)  # a weight per output row
     wx0, wy0 = np.float32(1) - fx, np.float32(1) - fy

@@ -154,3 +154,24 @@ def surgery_opt_state(state: AdamState, keep_mask, n_new: int) -> AdamState:
 
     return AdamState(count=state.count, mu={k: fix(v) for k, v in state.mu.items()},
                      nu={k: fix(v) for k, v in state.nu.items()})
+
+
+def adam(lr_fn):
+    """adam_step as an update fn(params, grads, state), the form the sharded
+    steps take (parallel/sharding.py, parallel/gauss2d.py)."""
+    def update(params, grads: dict, state: AdamState) -> None:
+        adam_step(params, grads, state, lr_fn)
+
+    return update
+
+
+def sgd(lr: float):
+    """Plain gradient descent as an update fn(params, grads, state); the
+    state is unused. With lr 1 a step's change is its gradient, which is how
+    the sharded steps' gradients are read back."""
+    @torch.no_grad()
+    def update(params, grads: dict, state=None) -> None:
+        for name, p in params.named():
+            p.sub_(lr * grads[name])
+
+    return update

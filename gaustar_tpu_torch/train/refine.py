@@ -250,10 +250,21 @@ def compute_losses(params, model_config, data: FrameData, cam_idx: int, iteratio
         params, model_config, camera, bg=cfg.bg_color, sh_deg=sh_deg,
         max_depth=cfg.max_depth, raster_config=raster_cfg, geom=geom, layout="cm",
     )
-    loss, loss_dict = pixel_losses(data, cam_idx, iteration, cfg, img, pred_depth)
+    loss, loss_dict = losses_after_render(params, model_config, data, cam_idx, iteration, cfg, img, pred_depth,
+                                          unbind_weight, pre_sh_dc)
+    loss_dict["num_pairs"] = aux.num_pairs
+    return loss, loss_dict
+
+
+def losses_after_render(params, model_config, data: FrameData, cam_idx: int, iteration: int,
+                        cfg: RefineConfig, img_cm, pred_depth, unbind_weight=None, pre_sh_dc=None):
+    """The whole loss stack given a channels-major render (img_cm [3, H, W],
+    pred_depth [H, W]): one implementation for the single-device step
+    (compute_losses) and the gaussian-sharded one (parallel/gauss2d.py).
+    Returns (loss, loss_dict)."""
+    loss, loss_dict = pixel_losses(data, cam_idx, iteration, cfg, img_cm, pred_depth)
     s_loss, s_dict = shared_losses(params, model_config, data, iteration, cfg, unbind_weight, pre_sh_dc)
     loss_dict.update(s_dict)
-    loss_dict["num_pairs"] = aux.num_pairs
     return loss + s_loss, loss_dict
 
 
@@ -284,6 +295,13 @@ def compute_losses_multi(params, model_config, data: FrameData, cam_idxs, iterat
     return total * inv, b_dict
 
 
+def named_grads(loss, params) -> dict:
+    """{group: gradient of loss} for every named group (zeros where unused)."""
+    named = params.named()
+    gs = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+    return {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(named, gs)}
+
+
 def sh_deg_at(iteration: int, cfg: RefineConfig) -> int:
     """SH warmup: degree 0, +1 level every num_iterations/4 (refine.py:151-156)."""
     if not cfg.do_sh_warmup:
@@ -308,10 +326,7 @@ def train_step(params, opt_state, lr_fn, model_config, data: FrameData, cam_idx,
             params, model_config, data, cam_idx, iteration, cfg, raster_cfg, sh_deg,
             unbind_weight, pre_sh_dc,
         )
-    named = params.named()
-    grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
-    grads = {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(named, grads)}
-    adam_step(params, grads, opt_state, lr_fn)
+    adam_step(params, named_grads(loss, params), opt_state, lr_fn)
     return loss.detach(), {k: (v.detach() if torch.is_tensor(v) else v) for k, v in loss_dict.items()}
 
 
@@ -349,7 +364,7 @@ def refine_frame(
     restore params, Adam state and iteration, replay the loose-bind
     transition, and fast-forward the camera-order rng, so the run continues
     exactly as one that was never interrupted."""
-    params = sugar.SuGaRParams(**{k: v.detach().clone().requires_grad_() for k, v in params.named()})
+    params = sugar.fresh_params(params)
     n_faces = model_config.faces.shape[0]
     if spatial_lr_scale is None:
         # refine.py:408: 10 * bbox_radius / sqrt(n_faces)

@@ -38,5 +38,8 @@ def test_port_has_modules():
                      "mesh/surgery.py", "train/mesh_update.py", "train/sequence.py",
                      "models/neural_field.py", "train/init_mesh.py", "tools/mesh_render.py", "tools/raft.py",
                      "tools/depth_fusion.py", "ops/knn.py", "models/gaussians.py", "train/densifier.py",
-                     "train/train_gaussians.py", "models/compositor.py", "eval/metrics.py", "eval/lpips_convert.py"):
+                     "train/train_gaussians.py", "models/compositor.py", "eval/metrics.py", "eval/lpips_convert.py",
+                     "parallel/launch.py", "parallel/collectives.py", "parallel/sharding.py", "parallel/gauss2d.py",
+                     "parallel/gauss_shard.py", "tools/registration.py", "tools/network_gui.py",
+                     "tools/cmr_convert.py", "utils/profiling.py"):
         assert required in names

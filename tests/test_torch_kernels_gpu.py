@@ -136,6 +136,57 @@ def test_split_kernels_on_segment_edges(cuda, channels):
         torch.testing.assert_close(g_k[row], g_p[row], rtol=1e-3, atol=atol)
 
 
+def _strip(args, d, g):
+    """Strip g of d of the blend inputs (tiles [g tpd, (g + 1) tpd), the tail
+    padded with empty tiles) and its tile_base."""
+    pd, start, count, gx, w, h, channels = args
+    n = start.shape[0]
+    tpd = -(-n // d)
+    t0, t1 = min(g * tpd, n), min((g + 1) * tpd, n)
+    s, c = torch.zeros_like(start[:1]).repeat(tpd), torch.zeros_like(count[:1]).repeat(tpd)
+    s[: t1 - t0], c[: t1 - t0] = start[t0:t1], count[t0:t1]
+    return (pd, s, c, gx, w, h, channels), g * tpd
+
+
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("channels", [3, 4])
+def test_strips_with_tile_base_concatenate_to_full_grid(cuda, channels, d):
+    """The split case's 4 x 2 tiles as d strips, each one launch with its
+    tile_base: the forward's rows 0-6 equal the full-grid launch's, the
+    gradients too (each block does the same work), and a strip equals the
+    plain versions with the same offset."""
+    args = (*_split_case(cuda, channels), channels)
+    n = args[1].shape[0]
+    raw_full, split_full = bc.blend_fwd_split(*args)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    ct = torch.zeros_like(raw_full)
+    for row in (0, 1, 2, 3, 6):
+        ct[:, row] = torch.randn(ct[:, row].shape, generator=gen, device=cuda)
+    g_full = bc.blend_bwd_cuda(*args, raw_full, ct, split_full)
+    raws, grads = [], torch.zeros_like(g_full)
+    for g in range(d):
+        s_args, base = _strip(args, d, g)
+        raw, split = bc.blend_fwd_split(*s_args, tile_base=base)
+        cts = torch.zeros_like(raw)
+        live = min(n - base, raw.shape[0])
+        cts[:live] = ct[base:base + live]
+        g_s = bc.blend_bwd_cuda(*s_args, raw, cts, split, tile_base=base)
+        grads += g_s
+        raws.append(raw)
+        if g == d - 1:
+            raw_p = bc.blend_fwd_plain(*s_args, tile_base=base)
+            assert torch.equal(raw[:, :7], raw_p[:, :7])
+            g_p = bc.blend_bwd_plain(*s_args, raw_p, cts, tile_base=base)
+            for row in range(6 + channels):
+                atol = 1e-3 * float(g_p[row].abs().max())
+                torch.testing.assert_close(g_s[row], g_p[row], rtol=1e-3, atol=atol)
+    full = torch.cat(raws)
+    assert torch.equal(full[:n, :7], raw_full[:, :7])
+    assert bool((full[n:, 3] == 1).all())
+    scale = g_full.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    assert float(((grads - g_full).abs() / scale).max()) <= 1e-6
+
+
 def test_blend_raw_launches_each_kernel_once(cuda):
     pd, start, count, gx, w, h = _blend_inputs(cuda, 4)
     pd = pd.clone().requires_grad_()

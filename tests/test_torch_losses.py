@@ -56,8 +56,8 @@ def test_mesh_regularizers_match_jax(with_tables):
     if with_tables:
         j_kw.update(tables=jseg.gather_tables(faces, len(verts)),
                     adj_tables=jseg.gather_tables(topo.adj_faces, len(faces)))
-        t_kw.update(tables=tseg.gather_tables(faces, len(verts)),
-                    adj_tables=tseg.gather_tables(topo.adj_faces, len(faces)))
+        t_kw.update(tables=tseg.gather_tables(faces, len(verts), "cpu"),
+                    adj_tables=tseg.gather_tables(topo.adj_faces, len(faces), "cpu"))
     w = {"nc": 0.5, "edge": 1000.0, "area": 1000.0}
 
     def jf(v):
@@ -85,7 +85,7 @@ def test_gather_rows_vjp_matches_jax():
     jg = jax.grad(lambda s: (jseg.gather_rows(s, jnp.asarray(idx), jseg.gather_tables(idx, n)) * ct).sum())(
         jnp.asarray(src))
     ts = torch.tensor(src, requires_grad=True)
-    out = tseg.gather_rows(ts, torch.as_tensor(idx, dtype=torch.int64), tseg.gather_tables(idx, n))
+    out = tseg.gather_rows(ts, torch.as_tensor(idx, dtype=torch.int64), tseg.gather_tables(idx, n, "cpu"))
     (out * torch.as_tensor(ct)).sum().backward()
     exact = np.zeros((n, c))
     np.add.at(exact, idx, ct.astype(np.float64))

@@ -133,6 +133,33 @@ def test_uint8_resize_equals_cv2(src, dst):
     np.testing.assert_allclose(resize_linear(flt, *dst), cv2.resize(flt, dst[::-1]), atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+@pytest.mark.parametrize("factor", [1.5, 2.0])
+@pytest.mark.parametrize("src", [(17, 23), (16, 24)], ids=["odd", "even"])
+def test_resize_upscale_equals_cv2(src, factor, dtype):
+    """Upscales (compute_flow_pair with scale > 1): resize_linear equals
+    cv2.resize (INTER_LINEAR) exactly, the first and last rows included,
+    where OpenCV's vertical pass blends the clamped edge row with itself.
+    Float images are held to OpenCV's own code with Intel IPP off: with it
+    on, OpenCV hands float32 images of 1, 3 or 4 channels to IPP, whose sums
+    round otherwise."""
+    rng = np.random.default_rng(int(10 * factor) + src[0])
+    dst = (int(round(src[0] * factor)), int(round(src[1] * factor)))
+    use_ipp = cv2.ipp.useIPP()
+    cv2.ipp.setUseIPP(False)
+    try:
+        for ch in (1, 2, 3):
+            if dtype == "uint8":
+                img = rng.integers(0, 256, src + (ch,)).astype(np.uint8)
+            else:
+                img = rng.uniform(-1.0, 1.0, src + (ch,)).astype(np.float32)
+            img = img[..., 0] if ch == 1 else img
+            ref = cv2.resize(img, dst[::-1], interpolation=cv2.INTER_LINEAR)
+            np.testing.assert_array_equal(resize_linear(img, *dst), ref, err_msg=f"{ch} channels")
+    finally:
+        cv2.ipp.setUseIPP(use_ipp)
+
+
 def test_compute_flow_pair_matches_jax(params):
     """compute_flow_pair on a 42x66 uint8 pair (scale 0.5 -> 21x33, padded
     to 24x40 and cropped back): both directions and the padding."""
