@@ -153,9 +153,29 @@ Phases, one line of output each (or a few):
              profiling.loop_bench of the refine step against phase 5's
              median; profiling.trace of one step, which must show the blend
              kernels; exact launch counts.
+ 14 refscale the reference-scale runs (gaustar_tpu_torch/refscale/) at full
+             width, shortened in depth (REFSCALE_*): frame.run on the
+             reference scene widened to REFSCALE_FRAME_CAMS ring cameras with
+             the dent in the GT (REFSCALE_FRAME_ITERS iterations in four
+             timed segments, detection twice, fusion decimated to 150,000
+             faces, the surgery, the half-budget re-refine); seq.run (the
+             two-frame dataset on 40 cameras, run_sequence at
+             REFSCALE_SEQ_ITERS a frame, each stage timed); real's capture
+             (GT renders on REFSCALE_REAL_CAMS cameras, REFSCALE_REAL_ITERS
+             refine iterations, detection under mean, trim1 and median on
+             the 160-camera rig with precision and recall, fusion); and
+             warp160.run on 160 cameras. It fails on a non-finite loss, a
+             frame whose surgery grafted nothing or whose fusion is not
+             decimated to about 150,000 faces, a sequence whose frames did
+             not checkpoint (whether a frame loose-bound and updated is
+             printed: at this depth neither does, PERF.md), a warp whose
+             mean motion error reaches REFSCALE_MAX_WARP_ERR_MM, or any
+             launch count that differs from what the run implies (one
+             forward and one backward per iteration, one forward per
+             detection render, fusion view and GT render).
 The kernels line adds launches_strips, launches_dist (summed over the ranks
-of both steps) and launches_tools, and each kernel's max |error| on the
-strip against its plain version.
+of both steps), launches_tools and launches_refscale, and each kernel's max
+|error| on the strip against its plain version.
 The last line is the JSON result {"ok": true, "device": {...}}. Any failed
 phase raises, and the script exits non-zero without that line.
 """
@@ -297,6 +317,27 @@ TOOLS_T_SHIFT = (0.0012, -0.0008, 0.0015)  # m
 TOOLS_MAX_T_ERR = 1e-5
 TOOLS_MIN_PSNR = 40.0  # dB, the moved model's render against the moved camera's
 TOOLS_BENCH_ITERS = 10
+# The reference-scale runs (phase 14, gaustar_tpu_torch/refscale/) at full
+# width, their depth cut to fit the time limit: the frame on 40 cameras for
+# 800 of 2000 iterations (detection twice, fusion decimated to 150,000 faces,
+# the surgery, a 400-iteration re-refine; after 400 iterations the trained
+# surface is not yet opaque enough for detection's visibility gate and
+# nothing is flagged, after 800 the dent is, PERF.md); the sequence's two
+# frames at 200 of 2000 iterations each; the real capture on 32 cameras for 100 of 400
+# iterations with detection on the 160-camera rig and fusion (its 160-camera
+# flow warp, host numpy, is left to the full run); the warp on 160 cameras,
+# whole, whose mean motion error must stay under REFSCALE_MAX_WARP_ERR_MM of
+# the 20 mm shift.
+REFSCALE_FRAME_CAMS = 40
+REFSCALE_FRAME_ITERS = 800
+REFSCALE_FUSED_FACES = (149_000, 150_000)
+REFSCALE_SEQ_CAMS = 40
+REFSCALE_SEQ_ITERS = 200
+REFSCALE_REAL_CAMS = 32
+REFSCALE_REAL_ITERS = 100
+REFSCALE_REAL_DETECT_CAMS = 160
+REFSCALE_WARP_CAMS = 160
+REFSCALE_MAX_WARP_ERR_MM = 1.0
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -1639,6 +1680,96 @@ def tools_phase(torch, bc, scene, refine_median_ms):
     return launches
 
 
+def refscale_phase(torch, bc):
+    """Phase 14: the reference-scale runs through their modules' entry
+    functions. Returns {kernel: launches} summed over the four runs."""
+    from gaustar_tpu_torch.refscale import frame, real, scenes, seq, warp160
+    from gaustar_tpu_torch.utils.synthetic import reference_scene
+
+    total = {"blend_fwd": 0, "blend_bwd": 0}
+
+    def counted(label, expected):
+        got = dict(bc.LAUNCHES)
+        log("refscale", f"{label}: launches {got}, expected {expected}")
+        if got != expected:
+            fail(f"refscale {label} launched the kernels {got}, expected {expected}")
+        for k in total:
+            total[k] += got[k]
+
+    def finite(label, segments):
+        bad = [s for s in segments if s["first_nonfinite_chunk_it"] is not None or not np.isfinite(s["loss_sum"])]
+        if bad:
+            fail(f"refscale {label}: non-finite loss in {bad}")
+
+    # The frame.
+    t0 = time.perf_counter()
+    params, config, data, rcfg = reference_scene("cuda")
+    data = scenes.reference_rig(data, REFSCALE_FRAME_CAMS)
+    torch.cuda.synchronize()
+    log("refscale", f"frame: scene and {REFSCALE_FRAME_CAMS}-camera rig built in {time.perf_counter() - t0:.1f} s")
+    bc.reset_launch_counts()
+    res = frame.run(params, config, data, rcfg, REFSCALE_FRAME_ITERS, log=lambda m: log("refscale", f"frame: {m}"))
+    rep = res["report"]
+    finite("frame refine", rep["refine"]["segments"])
+    if rep["cc_update_num"] < 1:
+        fail(f"refscale frame: the surgery grafted nothing (cc_update_num {rep['cc_update_num']})")
+    finite("frame re-refine", rep["re_refine"]["segments"])
+    if not REFSCALE_FUSED_FACES[0] <= rep["fusion_faces"] <= REFSCALE_FUSED_FACES[1]:
+        fail(f"refscale frame: {rep['fusion_faces']} fused faces, expected {REFSCALE_FUSED_FACES}")
+    log("refscale", "frame: " + json.dumps({k: v for k, v in rep.items() if k not in ("refine", "re_refine")}))
+    log("refscale", f"frame: ms per iteration refine {[round(s['ms_per_iter'], 2) for s in rep['refine']['segments']]} "
+                    f"(spread {rep['refine']['ms_per_iter_spread_pct']:.1f}%), re-refine "
+                    f"{[round(s['ms_per_iter'], 2) for s in rep['re_refine']['segments']]}")
+    its = REFSCALE_FRAME_ITERS + REFSCALE_FRAME_ITERS // 2
+    counted("frame", {"blend_fwd": its + 2 * 2 * REFSCALE_FRAME_CAMS + rep["fusion_views"], "blend_bwd": its})
+    del params, config, data, res
+    torch.cuda.empty_cache()
+
+    # The sequence.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_refseq_") as root:
+        bc.reset_launch_counts()
+        rep = seq.run(root, REFSCALE_SEQ_ITERS, REFSCALE_SEQ_CAMS, log=lambda m: log("refscale", f"seq: {m}"))
+    log("refscale", "seq: " + json.dumps({k: v for k, v in rep.items() if k != "stages"}))
+    if not (rep["frame0_ckpt"] and rep["frame1_ckpt"]):
+        fail(f"refscale seq: a frame wrote no checkpoint: {rep['frame0_ckpt']}, {rep['frame1_ckpt']}")
+    names = [s["stage"] for s in rep["stages"]]
+    n_refines = names.count("refine_frame")
+    bwd = 2 * REFSCALE_SEQ_ITERS + (n_refines - 2) * (REFSCALE_SEQ_ITERS // 2)
+    views = sum(s["views"] for s in rep["stages"] if s["stage"] == "extract_mesh_fusion")
+    counted(f"seq ({n_refines} refines, {names.count('detect_topo_err')} detections, {views} fusion views)",
+            {"blend_fwd": bwd + 2 * REFSCALE_SEQ_CAMS * names.count("detect_topo_err") + views, "blend_bwd": bwd})
+    torch.cuda.empty_cache()
+
+    # The real capture: GT renders, refine, detection on the full rig, fusion.
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    bc.reset_launch_counts()
+    cap = real.capture(REFSCALE_REAL_CAMS, rng, torch.device("cuda"))
+    params, config, topo, hist = real.refine_body(cap, REFSCALE_REAL_ITERS, torch.device("cuda"))
+    if len(hist) != REFSCALE_REAL_ITERS // 50 or not all(np.isfinite(h["loss"]) for h in hist):
+        fail(f"refscale real: refine history {hist}")
+    det_cams, det_depths = real.detection_rig(cap, REFSCALE_REAL_DETECT_CAMS, torch.device("cuda"))
+    rows = real.detection(params, config, topo, det_cams, det_depths, real.changed_faces(cap["body_v"], cap["body_f"]),
+                          log=lambda m: log("refscale", f"real: {m}"))
+    fus = real.fusion(params, config, cap["cams"], torch.device("cuda"))
+    log("refscale", f"real: GT render {cap['gt_render_s']:.1f} s, final loss {hist[-1]['loss']:.5f}, fusion {fus}; "
+                    f"wall {time.perf_counter() - t0:.1f} s")
+    counted("real", {"blend_fwd": REFSCALE_REAL_CAMS + REFSCALE_REAL_ITERS
+                     + 2 * REFSCALE_REAL_DETECT_CAMS * len(real.DETECTORS) + fus["views"],
+                     "blend_bwd": REFSCALE_REAL_ITERS})
+    del cap, params, config, rows, det_depths
+    torch.cuda.empty_cache()
+
+    # The 160-camera warp.
+    bc.reset_launch_counts()
+    rep, _ = warp160.run(REFSCALE_WARP_CAMS, log=lambda m: None)
+    log("refscale", "warp160: " + json.dumps(rep))
+    if not rep["motion_err_mean_mm"] < REFSCALE_MAX_WARP_ERR_MM:
+        fail(f"refscale warp160: mean motion error {rep['motion_err_mean_mm']:.3f} mm")
+    counted("warp160", {"blend_fwd": 0, "blend_bwd": 0})
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1706,6 +1837,11 @@ def main() -> int:
     tools_launches = tools_phase(torch, bc, scene, median_ms)
     log("tools", f"phase wall {time.perf_counter() - t0:.1f} s")
     del scene
+    torch.cuda.empty_cache()
+    # 14 refscale: the reference-scale runs
+    t0 = time.perf_counter()
+    refscale_launches = refscale_phase(torch, bc)
+    log("refscale", f"phase wall {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         k["launches_topo"] = topo_launches[k["name"]]
         k["launches_seq"] = seq_launches[k["name"]]
@@ -1714,6 +1850,7 @@ def main() -> int:
         k["launches_strips"] = strip_launches[k["name"]]
         k["launches_dist"] = dist_launches[k["name"]]
         k["launches_tools"] = tools_launches[k["name"]]
+        k["launches_refscale"] = refscale_launches[k["name"]]
         k["max_abs_err_strip"] = strip_errs[k["name"]]
     kernels[0]["max_abs_err_fwd_only"] = fwd_only_err
     log("done", f"total {time.perf_counter() - t_start:.1f} s")

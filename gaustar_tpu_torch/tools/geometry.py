@@ -154,12 +154,14 @@ def resize_linear(img: np.ndarray, height: int, width: int) -> np.ndarray:
     """cv2.resize(img, (width, height)) with INTER_LINEAR, up or down. uint8
     follows OpenCV's fixed-point rule exactly: weights rounded to 11 bits,
     the horizontal pass in integers, the vertical one as its vectorized code
-    does, ((r0 >> 4) b0 >> 16) + ((r1 >> 4) b1 >> 16) rounded off by 2 bits
-    (an exact halving reduces to OpenCV's 2x2 area mean, the same values).
+    does, ((r0 >> 4) b0 >> 16) + ((r1 >> 4) b1 >> 16) rounded off by 2 bits.
     Float images blend with the float32 weights, as OpenCV's own code does;
     OpenCV hands float32 images of 1, 3 or 4 channels to Intel IPP where its
-    build has it, whose sums round otherwise (within 2e-6 of the range)."""
+    build has it, whose sums round otherwise (within 2e-6 of the range).
+    An exact halving takes OpenCV's 2x2 area path (_halve)."""
     in_h, in_w = img.shape[:2]
+    if (in_h, in_w) == (2 * height, 2 * width):
+        return _halve(img)
     x0, x1, fx = _linear_taps(in_w, width, True)
     y0, y1, fy = _linear_taps(in_h, height, False)
     col = (slice(None),) + (None,) * (img.ndim - 2)  # a weight per output column
@@ -174,6 +176,25 @@ def resize_linear(img: np.ndarray, height: int, width: int) -> np.ndarray:
     src = img.astype(np.float32)
     rows = src[:, x0] * wx0[col] + src[:, x1] * fx[col]
     return (rows[y0] * wy0[row] + rows[y1] * fy[row]).astype(img.dtype)
+
+
+def _halve(img: np.ndarray) -> np.ndarray:
+    """OpenCV's INTER_LINEAR at a scale of exactly 2, which it computes as
+    INTER_AREA's 2x2 mean (resize.cpp, resizeAreaFast_). Its vectorized
+    kernels (uint8 and float32 of 1 or 4 channels, uint8 of 3) sum
+    (p00 + p01) + (p10 + p11), and uint8 rounds (sum + 2) >> 2; its generic
+    loop sums ((p00 + p01) + p10) + p11 and scales by 0.25f, rounding uint8
+    half to even."""
+    q00, q01, q10, q11 = img[0::2, 0::2], img[0::2, 1::2], img[1::2, 0::2], img[1::2, 1::2]
+    ch = 1 if img.ndim == 2 else img.shape[2]
+    if img.dtype == np.uint8:
+        total = q00.astype(np.int64) + q01 + q10 + q11
+        if ch in (1, 3, 4):
+            return ((total + 2) >> 2).astype(np.uint8)
+        return np.rint(total.astype(np.float32) * np.float32(0.25)).astype(np.uint8)
+    if img.dtype == np.float32 and ch in (1, 4):
+        return ((q00 + q01) + (q10 + q11)) * img.dtype.type(0.25)
+    return (((q00 + q01) + q10) + q11) * img.dtype.type(0.25)
 
 
 def pad_and_resize_flow(flow, pad, shape):

@@ -50,6 +50,34 @@ def ring_cameras(n=4, dist=4.0, w=48, h=48, focal=60.0, center_z=4.0, device="cu
     return cams
 
 
+def rig_cameras(n=160, rows=5, dist=4.0, w=48, h=48, focal=60.0, center_z=4.0, elev_deg=(-40.0, 40.0),
+                device="cuda"):
+    """Multi-elevation capture rig: `rows` rings of cameras on a sphere of
+    radius `dist`, elevations spanning `elev_deg`, all looking at the scene
+    centre (the geometry of the ActorsHQ rig, cameras at many heights)."""
+    cams = []
+    elevs = np.linspace(elev_deg[0], elev_deg[1], rows)
+    per_row = [n // rows + (1 if i < n % rows else 0) for i in range(rows)]
+    target = np.array([0.0, 0.0, center_z])
+    for ri, (el, nr) in enumerate(zip(elevs, per_row)):
+        el = np.deg2rad(el)
+        for i in range(nr):
+            a = 2 * np.pi * (i + 0.5 * (ri % 2)) / max(nr, 1)
+            pos = np.array([dist * np.cos(el) * np.sin(a), dist * np.sin(el), center_z - dist * np.cos(el) * np.cos(a)])
+            z = target - pos
+            z /= np.linalg.norm(z)
+            up = np.array([0.0, -1.0, 0.0])
+            x = np.cross(up, z)
+            x /= np.linalg.norm(x)
+            y = np.cross(z, x)
+            R = np.stack([x, y, z], axis=1)
+            w2c = np.eye(4)
+            w2c[:3, :3] = R.T
+            w2c[:3, 3] = -R.T @ pos
+            cams.append(Camera.from_w2c(w2c, focal, focal, w / 2, h / 2, w, h, device=device))
+    return cams
+
+
 def _frame_data(verts, faces, cams, gt_images, gt_depths, dev) -> FrameData:
     topo = build_topology(np.asarray(faces), len(verts))
     v = torch.as_tensor(verts, device=dev)

@@ -41,5 +41,6 @@ def test_port_has_modules():
                      "train/train_gaussians.py", "models/compositor.py", "eval/metrics.py", "eval/lpips_convert.py",
                      "parallel/launch.py", "parallel/collectives.py", "parallel/sharding.py", "parallel/gauss2d.py",
                      "parallel/gauss_shard.py", "tools/registration.py", "tools/network_gui.py",
-                     "tools/cmr_convert.py", "utils/profiling.py"):
+                     "tools/cmr_convert.py", "utils/profiling.py", "refscale/scenes.py", "refscale/frame.py",
+                     "refscale/seq.py", "refscale/real.py", "refscale/warp160.py"):
         assert required in names

@@ -160,6 +160,30 @@ def test_resize_upscale_equals_cv2(src, factor, dtype):
         cv2.ipp.setUseIPP(use_ipp)
 
 
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_resize_halving_equals_cv2(channels, dtype):
+    """Exact halvings (compute_flow_pair at scale 0.5 of an even frame),
+    where OpenCV switches INTER_LINEAR to its 2x2 area path: resize_linear
+    equals cv2.resize exactly, for 2 channels too (its generic loop rounds
+    uint8 half to even and sums float32 in another order than its vectorized
+    kernels). Intel IPP off, as above."""
+    rng = np.random.default_rng(channels)
+    shape = (16, 24) if channels == 1 else (16, 24, channels)
+    use_ipp = cv2.ipp.useIPP()
+    cv2.ipp.setUseIPP(False)
+    try:
+        for src in (shape, (2 * shape[0], 2 * shape[1]) + shape[2:]):
+            if dtype == "uint8":
+                img = rng.integers(0, 256, src).astype(np.uint8)
+            else:
+                img = rng.uniform(-1.0, 1.0, src).astype(np.float32)
+            ref = cv2.resize(img, (src[1] // 2, src[0] // 2), interpolation=cv2.INTER_LINEAR)
+            np.testing.assert_array_equal(resize_linear(img, src[0] // 2, src[1] // 2), ref)
+    finally:
+        cv2.ipp.setUseIPP(use_ipp)
+
+
 def test_compute_flow_pair_matches_jax(params):
     """compute_flow_pair on a 42x66 uint8 pair (scale 0.5 -> 21x33, padded
     to 24x40 and cropped back): both directions and the padding."""
