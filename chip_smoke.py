@@ -65,13 +65,14 @@ Phases, one line of output each (or a few):
              loss is finite and each kernel launched exactly as often as the
              two entry points imply;
   9 prep     the dataset preparation at examples/refscale_field_init.py's
-             widths: the field initializer (train/init_mesh.py) on PREP_CAMS
-             ring cameras at 1600x1024 seeing the analytic sphere (RGB 0.6,
-             masks from the hit test), FieldConfig's default widths over
-             PREP_AABB, occupancy carving at PREP_OCC_RES, PREP_RAYS rays a
-             batch for PREP_ITERS iterations, the iso level relative to the
-             trained density, extraction at PREP_GRID_RES with the CC filter,
-             10 smoothing iterations and decimation to 100,000 faces; the mesh
+             widths: the field initializer through refscale.field_init.run
+             (train/init_mesh.py) on PREP_CAMS ring cameras at 1600x1024
+             seeing the analytic sphere (RGB 0.6, masks from the hit test),
+             FieldConfig's default widths over field_init.AABB, occupancy
+             carving at 128, PREP_RAYS rays a batch for PREP_ITERS
+             iterations, the iso level relative to the trained density,
+             extraction at PREP_GRID_RES with the CC filter, 10 smoothing
+             iterations and decimation to 100,000 faces; the mesh
              depth renderer (tools/mesh_render.py) on uv_sphere(201, 250) in
              PREP_RENDER_CAMS of the cameras against
              utils/synthetic.sphere_depth and on the initializer's mesh in
@@ -172,10 +173,25 @@ Phases, one line of output each (or a few):
              mean motion error reaches REFSCALE_MAX_WARP_ERR_MM, or any
              launch count that differs from what the run implies (one
              forward and one backward per iteration, one forward per
-             detection render, fusion view and GT render).
+             detection render, fusion view and GT render). seq prints each
+             mid-refine detection's pair demand (the largest num_pairs of
+             its normal and solid-surface renders over the cameras) beside
+             the refine's largest before it, real its detections' demand;
+ 15 demo     gaustar_tpu_torch.demo.run at the demo's own size (12 ring
+             cameras at 256x256, DEMO_ITERS iterations a frame): the
+             two-frame dataset with a blob appearing in frame 1, GT from the
+             blend kernel, then run_sequence with the mesh update on. It
+             prints the PSNRs and the detections' pair demand, and fails if
+             a frame's loose bind differs from DEMO_LOOSE_BIND (at this size
+             both frames loose-bind, as through the JAX package on the same
+             model), a loose-bound frame does not graft (cc_update_num >=
+             1), a loss is non-finite, or a
+             launch count differs from what the run implies (one forward
+             per GT render, detection render, fusion view and PSNR render;
+             one forward and one backward per iteration).
 The kernels line adds launches_strips, launches_dist (summed over the ranks
-of both steps), launches_tools and launches_refscale, and each kernel's max
-|error| on the strip against its plain version.
+of both steps), launches_tools, launches_refscale and launches_demo, and
+each kernel's max |error| on the strip against its plain version.
 The last line is the JSON result {"ok": true, "device": {...}}. Any failed
 phase raises, and the script exits non-zero without that line.
 """
@@ -236,17 +252,12 @@ SEQ_MEDIAN_MOVE = (0.8, 1.2)
 # rays a batch, occupancy at 128. Cut: 300 training iterations of 2000, and
 # the extraction grid at InitMeshConfig's 256 where that run took 512 (the
 # marching tetrahedra run on the host). The iso level is relative to the
-# trained interior density, as there (:106-117), capped at PREP_ISO_CAP.
+# trained interior density, as there (:106-117). The sphere, the AABB, the
+# occupancy resolution and the face target are refscale/field_init.py's.
 PREP_CAMS = 40
-PREP_CENTER = (0.0, 0.0, 4.0)
-PREP_RADIUS = 0.6
-PREP_AABB = ((-0.8, -0.8, 3.2), (0.8, 0.8, 4.8))
 PREP_ITERS = 300
 PREP_RAYS = 8192
-PREP_OCC_RES = 128
 PREP_GRID_RES = 256
-PREP_ISO_CAP = 10.0
-PREP_FACES = 100_000
 PREP_MAX_CENTROID_ERR = 0.1  # m
 # The mesh renderer's check: uv_sphere(201, 250) (100,000 faces, chord
 # sagitta 0.047 mm at radius 0.6) in 8 of the cameras against the analytic
@@ -338,6 +349,15 @@ REFSCALE_REAL_ITERS = 100
 REFSCALE_REAL_DETECT_CAMS = 160
 REFSCALE_WARP_CAMS = 160
 REFSCALE_MAX_WARP_ERR_MM = 1.0
+# The end-to-end demo (phase 15, gaustar_tpu_torch/demo.py) at its own size.
+# By iteration 300 the in-plane scales of frame 0's gaussians have grown
+# enough to put 1.2 cm of median depth error (5.7 cm at the 90th
+# percentile) between the detection's renders and the GT's, and detection
+# flags 817-821 of the 1,280 faces; the JAX package's detection
+# and surgery on the same model flag the same faces and graft (PERF.md).
+# So both frames loose-bind and graft.
+DEMO_ITERS = 600
+DEMO_LOOSE_BIND = [True, True]
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -827,90 +847,63 @@ def seq_phase(torch, bc, root):
 def prep_phase(torch, bc):
     """Phase 9: the dataset preparation at full width. Returns {kernel:
     launches} of the phase (none expected)."""
-    import dataclasses
-
     from gaustar_tpu_torch.mesh.primitives import uv_sphere
     from gaustar_tpu_torch.models import neural_field as nf
+    from gaustar_tpu_torch.refscale import field_init
     from gaustar_tpu_torch.tools import depth_fusion, mesh_render, raft
     from gaustar_tpu_torch.tools.geometry import resize_linear
-    from gaustar_tpu_torch.train import init_mesh
     from gaustar_tpu_torch.utils.general import device_ms, full_float32
-    from gaustar_tpu_torch.utils.synthetic import REF_FOCAL, REF_H, REF_W, ring_cameras, sphere_depth
+    from gaustar_tpu_torch.utils.synthetic import REF_FOCAL, REF_H, REF_W, sphere_depth
 
-    center = np.asarray(PREP_CENTER)
+    center, radius = field_init.CENTER, field_init.RADIUS
     bc.reset_launch_counts()
-    t0 = time.perf_counter()
-    cams = ring_cameras(PREP_CAMS, w=REF_W, h=REF_H, focal=REF_FOCAL, device="cuda")
-    views = [c.view.cpu().numpy().astype(np.float64) for c in cams]
-    depths = np.stack([sphere_depth(v, REF_FOCAL, (REF_H, REF_W), PREP_CENTER, PREP_RADIUS) for v in views])
-    masks = (depths < mesh_render.INVALID_DEPTH - 1.0).astype(np.float32)
-    images = np.where(masks[..., None] > 0, np.float32(0.6), np.float32(0.0))
-    log("prep", f"scene: {PREP_CAMS} cameras {REF_W}x{REF_H}, sphere r {PREP_RADIUS} at {PREP_CENTER}; "
-                f"views and masks in {time.perf_counter() - t0:.1f} s")
 
-    # The field initializer.
-    fcfg = nf.FieldConfig(aabb_min=PREP_AABB[0], aabb_max=PREP_AABB[1])
-    mcfg = init_mesh.InitMeshConfig(iterations=PREP_ITERS, rays_per_batch=PREP_RAYS, occupancy_res=PREP_OCC_RES,
-                                    grid_res=PREP_GRID_RES, target_faces=PREP_FACES, iso_level=PREP_ISO_CAP)
-    losses = []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    field, fcfg, occ = init_mesh.train_field(cams, images, masks, mcfg, fcfg, log_fn=losses.append)
-    torch.cuda.synchronize()
-    t_train = time.perf_counter() - t0
-    peak_train = torch.cuda.max_memory_allocated() / 2**30
-    tr = init_mesh.last_train
-    step = statistics.median(tr["step_ms"][WARMUP_STEPS:])
-    probe = np.stack([center, center + [0.5 * PREP_RADIUS, 0, 0], center + [PREP_RADIUS, 0, 0],
-                      center + [1.5 * PREP_RADIUS, 0, 0]]).astype(np.float32)
-    with torch.no_grad():
-        dens = nf.query_density(field, torch.as_tensor(probe, device="cuda"), fcfg)[0].cpu().numpy()
-    iso = float(np.clip(0.25 * dens[1], 1.0, PREP_ISO_CAP))
+    # The field initializer: training and extraction.
+    rep, out = field_init.run(PREP_ITERS, PREP_GRID_RES, PREP_RAYS, PREP_CAMS, device="cuda",
+                              log=lambda m: log("prep", m))
+    field, fcfg, mesh, cams = out["field"], out["field_cfg"], out["mesh"], out["cams"]
+    step, losses = rep["step_ms_median"], rep["losses"]
     log("prep", f"field: {fcfg.n_levels} levels x 2^{int(np.log2(fcfg.table_size))} x {fcfg.n_features}, hidden "
-                f"{fcfg.hidden}, {fcfg.n_samples} samples; train {PREP_ITERS} its x {tr['rays']} rays: wall "
-                f"{t_train:.1f} s, occupancy carve {tr['occupancy_ms']:.1f} ms (res {PREP_OCC_RES}, fill "
-                f"{100 * float(occ.mean()):.2f}%), median step {step:.2f} ms (CUDA events, steps "
-                f"{WARMUP_STEPS + 1}-{PREP_ITERS}), {tr['rays'] / step * 1e3:.0f} rays/s, "
-                f"{tr['rays'] * fcfg.n_samples / step * 1e3:.3e} samples/s; peak mem {peak_train:.2f} GiB; "
-                f"losses {[round(e['loss'], 5) for e in losses]}; density probe centre/inside/surface/outside "
-                f"{[round(float(x), 3) for x in dens]}, iso {iso:.3f}")
-    if len(losses) != PREP_ITERS // 200 or not all(np.isfinite(e["loss"]) for e in losses):
+                f"{fcfg.hidden}, {fcfg.n_samples} samples; {PREP_CAMS} cameras {REF_W}x{REF_H}, views and masks in "
+                f"{rep['gt_build_s']:.1f} s; train {PREP_ITERS} its x {PREP_RAYS} rays: wall {rep['train_s']:.1f} s, "
+                f"occupancy carve {rep['occupancy_ms']:.1f} ms (res {rep['occupancy_res']}, fill "
+                f"{rep['occupancy_fill_pct']:.2f}%), median step {step:.2f} ms (CUDA events, steps 4-{PREP_ITERS}), "
+                f"{PREP_RAYS / step * 1e3:.0f} rays/s, {PREP_RAYS * fcfg.n_samples / step * 1e3:.3e} samples/s; "
+                f"peak mem {rep.get('train_peak_memory_bytes', 0) / 2**30:.2f} GiB; losses {[round(x, 5) for x in losses]}; "
+                f"density probe {rep['density_probe']}")
+    if len(losses) != PREP_ITERS // 200 or not all(np.isfinite(losses)):
         fail(f"non-finite field loss: {losses}")
     # The hash encoding alone at a training batch's size (a kernel candidate).
-    pts01 = torch.rand((tr["rays"] * fcfg.n_samples, 3), generator=torch.Generator(device="cuda").manual_seed(1),
+    pts01 = torch.rand((PREP_RAYS * fcfg.n_samples, 3), generator=torch.Generator(device="cuda").manual_seed(1),
                        device="cuda")
     with torch.no_grad():
         enc_ms = cuda_ms(torch, lambda: nf.hash_encode(field.tables, pts01, fcfg), iters=5)
     enc_bwd_ms = cuda_ms(torch, lambda: nf.hash_encode(field.tables, pts01, fcfg).sum().backward(), iters=5)
     log("prep", f"hash_encode of {len(pts01)} points ({fcfg.n_levels} levels x 8 corners): forward {enc_ms:.2f} ms, "
                 f"forward + backward {enc_bwd_ms:.2f} ms (CUDA events)")
-    del pts01
+    del pts01, field, out
 
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    mesh = init_mesh.extract_init_mesh(field, fcfg, dataclasses.replace(mcfg, iso_level=iso), occupancy=occ)
-    t_ext = time.perf_counter() - t0
-    ex = init_mesh.last_extract
-    c = mesh.verts.mean(axis=0) if len(mesh.verts) else np.full(3, np.nan)
-    r = np.linalg.norm(mesh.verts - c, axis=1) if len(mesh.verts) else np.zeros(1)
-    cerr = float(np.linalg.norm(c - center))
-    log("prep", f"extract {PREP_GRID_RES}^3: wall {t_ext:.1f} s; density grid {ex['grid_ms']:.1f} device ms; host ms "
-                f"tets {ex.get('tets_ms', 0):.1f}, cc filter {ex.get('cc_filter_ms', 0):.1f}, smooth "
+    ex = rep["extract_ms"]
+    cerr = rep.get("center_err_m", float("nan"))
+    log("prep", f"extract {PREP_GRID_RES}^3: wall {rep['extract_s']:.1f} s; density grid {ex['grid_ms']:.1f} device "
+                f"ms; host ms tets {ex.get('tets_ms', 0):.1f}, cc filter {ex.get('cc_filter_ms', 0):.1f}, smooth "
                 f"{ex.get('smooth_ms', 0):.1f}, decimate {ex.get('decimate_ms', 0):.1f}; {len(mesh.faces)} faces, "
-                f"{len(mesh.verts)} vertices; centroid error {cerr:.4f} m, radius mean {r.mean():.4f} std "
-                f"{r.std():.4f} m (true {PREP_RADIUS}); peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if not 0 < len(mesh.faces) <= PREP_FACES:
+                f"{len(mesh.verts)} vertices; centroid error {cerr:.4f} m, radius mean "
+                f"{rep.get('radius_mean_m', float('nan')):.4f} std {rep.get('radius_std_m', float('nan')):.4f} m "
+                f"(true {radius}); peak mem {rep.get('extract_peak_memory_bytes', 0) / 2**30:.2f} GiB")
+    if not 0 < len(mesh.faces) <= field_init.TARGET_FACES:
         fail(f"the initial mesh has {len(mesh.faces)} faces")
     if not np.isfinite(mesh.verts).all():
         fail("the initial mesh has non-finite vertices")
     if not cerr < PREP_MAX_CENTROID_ERR:
         fail(f"the initial mesh's centroid is {cerr:.4f} m from the sphere's centre")
-    del field
 
     # The mesh depth renderer: the uv_sphere against the analytic depth, then
-    # the initializer's mesh in every camera.
-    sv, sf = uv_sphere(201, 250, radius=PREP_RADIUS, center=PREP_CENTER)
+    # the initializer's mesh in every camera (IoU against the depth's masks).
+    views = [c.view.cpu().numpy().astype(np.float64) for c in cams]
+    depths = np.stack([sphere_depth(v, REF_FOCAL, (REF_H, REF_W), center, radius) for v in views])
+    masks = (depths < mesh_render.INVALID_DEPTH - 1.0).astype(np.float32)
+    sv, sf = uv_sphere(201, 250, radius=radius, center=center)
     picks = list(range(0, PREP_CAMS, PREP_CAMS // PREP_RENDER_CAMS))[:PREP_RENDER_CAMS]
     stats = []
     for ci in picks:
@@ -982,9 +975,9 @@ def prep_phase(torch, bc):
     cmr = {"intrinsics": np.stack([np.diag([REF_FOCAL, REF_FOCAL, 1.0])] * len(picks)),
            "extrinsics": np.stack([views[ci] for ci in picks])}
     fused, fus_ms = device_ms(torch.device("cuda"), lambda: depth_fusion.fuse_gt_depths(depths[picks], cmr, device="cuda"))
-    dist = float(np.median(np.abs(np.linalg.norm(fused.verts - center, axis=1) - PREP_RADIUS)))
+    dist = float(np.median(np.abs(np.linalg.norm(fused.verts - center, axis=1) - radius)))
     log("prep", f"fuse_gt_depths of {len(picks)} analytic depth maps: {fus_ms:.1f} ms (CUDA events around the call, "
-                f"host extraction included); {len(fused.faces)} faces; median |r - {PREP_RADIUS}| {1e3 * dist:.3f} mm "
+                f"host extraction included); {len(fused.faces)} faces; median |r - {radius}| {1e3 * dist:.3f} mm "
                 f"(voxel {1e3 * FUSION_VOXEL} mm)")
     if not len(fused.faces) or not dist < FUSION_VOXEL:
         fail(f"the fused mesh left the sphere: median distance {dist:.4f} m")
@@ -1730,6 +1723,10 @@ def refscale_phase(torch, bc):
         bc.reset_launch_counts()
         rep = seq.run(root, REFSCALE_SEQ_ITERS, REFSCALE_SEQ_CAMS, log=lambda m: log("refscale", f"seq: {m}"))
     log("refscale", "seq: " + json.dumps({k: v for k, v in rep.items() if k != "stages"}))
+    for d in rep["pair_demand"]:
+        log("refscale", f"seq: detection at iteration {d['iteration']}: pair demand normal {d['detect_max_pairs']}, "
+                        f"solid {d['detect_max_pairs_solid']}; the refine's largest before it "
+                        f"{d['refine_max_pairs']} (solid / refine {d['solid_over_refine']:.4f})")
     if not (rep["frame0_ckpt"] and rep["frame1_ckpt"]):
         fail(f"refscale seq: a frame wrote no checkpoint: {rep['frame0_ckpt']}, {rep['frame1_ckpt']}")
     names = [s["stage"] for s in rep["stages"]]
@@ -1754,6 +1751,8 @@ def refscale_phase(torch, bc):
     fus = real.fusion(params, config, cap["cams"], torch.device("cuda"))
     log("refscale", f"real: GT render {cap['gt_render_s']:.1f} s, final loss {hist[-1]['loss']:.5f}, fusion {fus}; "
                     f"wall {time.perf_counter() - t0:.1f} s")
+    log("refscale", f"real: detection pair demand (normal, solid) {[(r['max_pairs'], r['max_pairs_solid']) for r in rows.values()]}"
+                    f"; the refine's largest at its logged iterations {max(int(h['num_pairs']) for h in hist)}")
     counted("real", {"blend_fwd": REFSCALE_REAL_CAMS + REFSCALE_REAL_ITERS
                      + 2 * REFSCALE_REAL_DETECT_CAMS * len(real.DETECTORS) + fus["views"],
                      "blend_bwd": REFSCALE_REAL_ITERS})
@@ -1768,6 +1767,46 @@ def refscale_phase(torch, bc):
         fail(f"refscale warp160: mean motion error {rep['motion_err_mean_mm']:.3f} mm")
     counted("warp160", {"blend_fwd": 0, "blend_bwd": 0})
     return total
+
+
+def demo_phase(torch, bc):
+    """Phase 15: the end-to-end demo at its own size. Returns {kernel:
+    launches} of the run."""
+    from gaustar_tpu_torch import demo
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_demo_") as root:
+        bc.reset_launch_counts()
+        rep = demo.run(root, DEMO_ITERS, device="cuda", log=lambda m: log("demo", m))
+        launches = dict(bc.LAUNCHES)
+    log("demo", json.dumps({k: v for k, v in rep.items() if k not in ("stages", "detection_and_unbind")}))
+    for d in rep["pair_demand"]:
+        log("demo", f"detection at iteration {d['iteration']}: pair demand normal {d['detect_max_pairs']}, solid "
+                    f"{d['detect_max_pairs_solid']}; the refine's largest before it {d['refine_max_pairs']} "
+                    f"(solid / refine {d['solid_over_refine']:.4f})")
+    f0, f1 = rep["frames"]
+    unbound = [e["loose_bind"] for e in rep["detection_and_unbind"] if "unbind_changed" in e]
+    log("demo", f"PSNR cam 0: frame 0 {f0['psnr_cam0']:.4f} dB, frame 1 {f1['psnr_cam0']:.4f} dB; loose bind per "
+                f"frame {unbound}; cc_update_num {f0['cc_update_num']}, {f1['cc_update_num']}; faces {f0['faces']}, "
+                f"{f1['faces']}; run_sequence {rep['seq_seconds']:.1f} s, dataset {rep['dataset_build_s']:.1f} s, peak "
+                f"mem {rep.get('peak_memory_bytes', 0) / 2**30:.2f} GiB")
+    if not rep["losses_finite"]:
+        fail("demo: a non-finite loss")
+    # At this size frame 0 loose-binds too, as it does through the JAX
+    # package on the same model (DEMO_LOOSE_BIND; PERF.md).
+    if unbound != DEMO_LOOSE_BIND:
+        fail(f"demo: loose bind per frame {unbound}, expected {DEMO_LOOSE_BIND}")
+    if not all(f["updated"] and (f["cc_update_num"] or 0) >= 1 for f in (f0, f1)):
+        fail(f"demo: a loose-bound frame grafted nothing (cc_update_num {f0['cc_update_num']}, {f1['cc_update_num']})")
+    names = [s["stage"] for s in rep["stages"]]
+    its = 2 * DEMO_ITERS + (names.count("refine_frame") - 2) * (DEMO_ITERS // 2)
+    views = sum(s["views"] for s in rep["stages"] if s["stage"] == "extract_mesh_fusion")
+    gt = 2 * 2 * demo.N_CAMS  # an image and a solid depth per camera and frame
+    expected = {"blend_fwd": gt + its + 2 * demo.N_CAMS * names.count("detect_topo_err") + views + 2, "blend_bwd": its}
+    log("demo", f"launches {launches}, expected {expected} ({gt} GT renders, {its} iterations, "
+                f"{names.count('detect_topo_err')} detections, {views} fusion views, 2 PSNR renders)")
+    if launches != expected:
+        fail(f"demo launched the kernels {launches}, expected {expected}")
+    return launches
 
 
 def main() -> int:
@@ -1842,6 +1881,11 @@ def main() -> int:
     t0 = time.perf_counter()
     refscale_launches = refscale_phase(torch, bc)
     log("refscale", f"phase wall {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    # 15 demo: the end-to-end demo with its topology change
+    t0 = time.perf_counter()
+    demo_launches = demo_phase(torch, bc)
+    log("demo", f"phase wall {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         k["launches_topo"] = topo_launches[k["name"]]
         k["launches_seq"] = seq_launches[k["name"]]
@@ -1851,6 +1895,7 @@ def main() -> int:
         k["launches_dist"] = dist_launches[k["name"]]
         k["launches_tools"] = tools_launches[k["name"]]
         k["launches_refscale"] = refscale_launches[k["name"]]
+        k["launches_demo"] = demo_launches[k["name"]]
         k["max_abs_err_strip"] = strip_errs[k["name"]]
     kernels[0]["max_abs_err_fwd_only"] = fwd_only_err
     log("done", f"total {time.perf_counter() - t_start:.1f} s")

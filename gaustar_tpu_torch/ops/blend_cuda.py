@@ -35,11 +35,16 @@ The plain versions walk the pair positions in a Python loop, vectorized over
 tiles and pixels. Each step rounds exactly as the kernel's per-pixel loop does
 (the kernels are built without FMA contraction), so the discrete decisions,
 and `n_contrib`, agree exactly; only the per-slot sums over 256 pixels are
-taken in another order. Memory is O(tiles x 256) whatever the pair count.
+taken in another order. The tiles are walked in decreasing pair count, so
+the tiles still walking at a step are a prefix of them and each step works
+on that prefix alone; the pairs of up to CHUNK steps are evaluated in one
+batch (at most CHUNK_ELEMS (tile, pair, pixel) values), and only the
+recurrences run one step at a time.
 """
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 from typing import NamedTuple
 
@@ -51,6 +56,8 @@ from gaustar_tpu_torch.ops.rasterizer_ref import clamp_alpha_ste
 
 PIX = TILE * TILE
 STATE_ROWS = 8
+CHUNK = 32  # pair positions a plain blend evaluates in one batch
+CHUNK_ELEMS = 1 << 22
 
 # Launches of each kernel, counted by its wrapper where it launches.
 LAUNCHES = {"blend_fwd": 0, "blend_bwd": 0}
@@ -93,18 +100,47 @@ def _active_tiles(tile_start, tile_count):
     return ids, tile_start[ids].to(torch.int64), tile_count[ids].to(torch.int64)
 
 
+def _tiles_by(tile_start, tile_count, key):
+    """_active_tiles in decreasing `key` [T] (ties in tile order), and the
+    key of each, negated, as an ascending host list."""
+    ids, start, count = _active_tiles(tile_start, tile_count)
+    order = torch.sort(key[ids], descending=True, stable=True).indices
+    return ids[order], start[order], count[order], (-key[ids[order]]).tolist()
+
+
+def _batch(neg_key: list, k: int) -> tuple[int, int]:
+    """(m, K): the tiles whose key exceeds k - K (a prefix), and K pair
+    positions below or from k (at most CHUNK, and at most CHUNK_ELEMS
+    values over the m tiles)."""
+    steps = min(CHUNK, k)
+    while True:
+        m = bisect.bisect_left(neg_key, -(k - steps))
+        if steps == 1 or m * steps * PIX <= CHUNK_ELEMS:
+            return m, steps
+        steps = max(1, CHUNK_ELEMS // (m * PIX))
+
+
 def _pair_at(pair_data, start, count, k: int):
     """Fields [F, Tn] of each tile's k-th pair, and whether it exists [Tn]."""
-    valid = count > k
-    slot = start + torch.clamp(torch.clamp(count - 1, max=k), min=0)
+    d, valid = _pairs_at(pair_data, start, count, torch.tensor([k], device=start.device))
+    return d[..., 0], valid[:, 0]
+
+
+def _pairs_at(pair_data, start, count, ks):
+    """Fields [F, Tn, K] of each tile's pairs at positions `ks` [K], and
+    whether each exists [Tn, K]."""
+    valid = count[:, None] > ks
+    slot = start[:, None] + torch.clamp(torch.minimum(count[:, None] - 1, ks), min=0)
     return pair_data[:, slot], valid
 
 
 def _eval_pair(d, px, py):
-    dx = d[0][:, None] - px
-    dy = d[1][:, None] - py
-    A, B, C = d[2][:, None], d[3][:, None], d[4][:, None]
-    op = d[5][:, None]
+    """The pairs' power, alpha and skip test at the pixels: fields d [F, ...]
+    against pixel positions that broadcast with d[0][..., None]."""
+    dx = d[0][..., None] - px
+    dy = d[1][..., None] - py
+    A, B, C = d[2][..., None], d[3][..., None], d[4][..., None]
+    op = d[5][..., None]
     power = -0.5 * (A * dx * dx + C * dy * dy) - B * dx * dy
     g = torch.exp(power)
     alpha = clamp_alpha_ste(op * g)
@@ -120,29 +156,42 @@ def blend_fwd_plain(pair_data, tile_start, tile_count, grid_x, width, height, ch
     n_tiles = tile_start.shape[0]
     empty = torch.zeros((n_tiles, STATE_ROWS, PIX), dtype=torch.float32, device=pair_data.device)
     empty[:, 3] = 1.0
-    ids, start, count = _active_tiles(tile_start, tile_count)
+    ids, start, count, neg_count = _tiles_by(tile_start, tile_count, tile_count)
     if ids.numel() == 0:
         return empty
     px, py = _tile_pixels(ids, grid_x, tile_base)
     done = (px >= width) | (py >= height)
     T = torch.ones_like(px)
-    col = [torch.zeros_like(px) for _ in range(channels)]
+    col = px.new_zeros((channels,) + px.shape)
     nc = torch.zeros_like(px)
-    zero = torch.zeros_like(px)
-    for k in range(int(count.max())):
-        d, valid = _pair_at(pair_data, start, count, k)
-        alpha, contrib, _, _, _ = _eval_pair(d, px, py)
-        contrib = contrib & valid[:, None] & ~done
-        test_t = T * (1.0 - alpha)
-        stop = contrib & (test_t < 1e-4)
-        inc = contrib & ~stop
-        done = done | stop
-        for ch in range(channels):
-            col[ch] = torch.where(inc, col[ch] + d[6 + ch][:, None] * alpha * T, col[ch])
-        T = torch.where(inc, test_t, T)
-        nc = torch.where(inc, zero + (k + 1), nc)
-    rows = [col[0], col[1], col[2], T, nc, done.to(torch.float32),
-            col[3] if channels == 4 else zero, zero]
+    ended = []  # the final state of the tiles whose lists ended, in tile order
+    k = 0
+    while k < -neg_count[0]:
+        m = bisect.bisect_left(neg_count, -k)  # the tiles with pairs at k
+        if m < T.shape[0]:
+            ended.insert(0, (col[:, m:], T[m:], nc[m:], done[m:]))
+            col, T, nc, done = col[:, :m], T[:m], nc[:m], done[:m]
+        steps = max(1, min(CHUNK, -neg_count[0] - k, CHUNK_ELEMS // (m * PIX)))
+        ks = torch.arange(k, k + steps, device=px.device)
+        d, valid = _pairs_at(pair_data, start[:m], count[:m], ks)
+        alpha, contrib, _, _, _ = _eval_pair(d, px[:m, None], py[:m, None])  # [m, K, 256]
+        contrib = contrib & valid[..., None]
+        one_minus = 1.0 - alpha
+        weighted = d[6:6 + channels][..., None] * alpha  # [C, m, K, 256]
+        for j in range(len(ks)):
+            inc = contrib[:, j] & ~done
+            test_t = T * one_minus[:, j]
+            stop = inc & (test_t < 1e-4)
+            inc = inc & ~stop
+            done = done | stop
+            col = torch.where(inc, col + weighted[:, :, j] * T, col)
+            T = torch.where(inc, test_t, T)
+            nc = torch.where(inc, float(k + j + 1), nc)
+        k += len(ks)
+    col, T, nc, done = (torch.cat(parts, dim=1 if i == 0 else 0)
+                        for i, parts in enumerate(zip((col, T, nc, done), *ended)))
+    zero = torch.zeros_like(T)
+    rows = [col[0], col[1], col[2], T, nc, done.to(torch.float32), col[3] if channels == 4 else zero, zero]
     return empty.index_put((ids,), torch.stack(rows, dim=1))
 
 
@@ -152,40 +201,55 @@ def blend_bwd_plain(pair_data, tile_start, tile_count, grid_x, width, height, ch
     backward.cu written out (no autograd); slots never walked stay zero."""
     _check_inputs(pair_data, tile_start, tile_count, channels)
     grads = torch.zeros_like(pair_data)
-    ids, start, count = _active_tiles(tile_start, tile_count)
-    if ids.numel() == 0:
+    # Tiles in decreasing n_contrib: walking back to front from position
+    # k_max - 1, the tiles that have begun are a prefix of them.
+    ids, start, count, neg_walked = _tiles_by(tile_start, tile_count, fwd[:, 4].amax(dim=1).to(torch.int64))
+    if ids.numel() == 0 or neg_walked[0] == 0:
         return grads
     px, py = _tile_pixels(ids, grid_x, tile_base)
     t_final = fwd[ids, 3]
     nc = fwd[ids, 4]
     d_t = dout[ids, 3]
-    d_c = [dout[ids, state_row(ch)] for ch in range(channels)]
+    d_c = torch.stack([dout[ids, state_row(ch)] for ch in range(channels)])  # [C, Tn, 256]
     zero = torch.zeros_like(px)
-    T = t_final.clone()
-    acc = [zero] * channels
-    last_c = [zero] * channels
-    last_alpha = zero
-    k_max = int(nc.max())
-    for k in range(k_max - 1, -1, -1):
-        d, valid = _pair_at(pair_data, start, count, k)
-        alpha, contrib, g, dx, dy = _eval_pair(d, px, py)
-        inc = contrib & valid[:, None] & (nc >= k + 1)
-        T = torch.where(inc, T / (1.0 - alpha), T)
-        w = alpha * T
-        dl_da = zero
-        g_feat = []
-        for ch in range(channels):
-            c = d[6 + ch][:, None]
-            acc[ch] = torch.where(inc, last_alpha * last_c[ch] + (1.0 - last_alpha) * acc[ch], acc[ch])
-            last_c[ch] = torch.where(inc, c.expand_as(zero), last_c[ch])
-            dl_da = dl_da + (c - acc[ch]) * d_c[ch]
-            g_feat.append(torch.where(inc, w * d_c[ch], zero))
-        dl_da = dl_da * T
-        last_alpha = torch.where(inc, alpha, last_alpha)
-        dl_da = dl_da + (-t_final / (1.0 - alpha)) * d_t
-        q = torch.where(inc, g * dl_da, zero)
-        A, B, C = d[2][:, None], d[3][:, None], d[4][:, None]
-        op = d[5][:, None]
+    zeros_c = torch.zeros_like(d_c)
+    # The state of the tiles that have begun (a prefix); a tile joins with
+    # its final T and nothing accumulated.
+    T, acc, last_c, last_alpha = t_final[:0], zeros_c[:, :0], zeros_c[:, :0], zero[:0]
+    k_hi = -neg_walked[0]
+    while k_hi > 0:
+        m, steps = _batch(neg_walked, k_hi)
+        T, acc, last_c, last_alpha = (torch.cat([x, y[..., x.shape[-2]:m, :]], dim=-2)
+                                      for x, y in ((T, t_final), (acc, zeros_c), (last_c, zeros_c),
+                                                   (last_alpha, zero)))
+        k_lo = k_hi - steps
+        ks = torch.arange(k_lo, k_hi, device=px.device)
+        d, valid = _pairs_at(pair_data, start[:m], count[:m], ks)
+        alpha, contrib, g, dx, dy = _eval_pair(d, px[:m, None], py[:m, None])  # [m, K, 256]
+        contrib = contrib & valid[..., None]
+        one_minus = 1.0 - alpha
+        feats = d[6:6 + channels][..., None]  # [C, m, K, 1]
+        nc_m, t_fin, d_tm, d_cm, zero_m = nc[:m], -t_final[:m], d_t[:m], d_c[:, :m], zero[:m]
+        qs, g_feats = [None] * len(ks), [None] * len(ks)
+        for j in range(len(ks) - 1, -1, -1):
+            inc = contrib[:, j] & (nc_m >= k_lo + j + 1)
+            T = torch.where(inc, T / one_minus[:, j], T)
+            w = alpha[:, j] * T
+            c = feats[:, :, j]
+            acc = torch.where(inc, last_alpha * last_c + (1.0 - last_alpha) * acc, acc)
+            last_c = torch.where(inc, c.expand_as(last_c), last_c)
+            terms = (c - acc) * d_cm
+            dl_da = zero_m
+            for ch in range(channels):
+                dl_da = dl_da + terms[ch]
+            g_feats[j] = torch.where(inc, w * d_cm, zero_m)
+            dl_da = dl_da * T
+            last_alpha = torch.where(inc, alpha[:, j], last_alpha)
+            dl_da = dl_da + (t_fin / one_minus[:, j]) * d_tm
+            qs[j] = torch.where(inc, g[:, j] * dl_da, zero_m)
+        q = torch.stack(qs, dim=1)  # [m, K, 256]
+        A, B, C = d[2][..., None], d[3][..., None], d[4][..., None]
+        op = d[5][..., None]
         per_pixel = [
             -op * q * (A * dx + B * dy),
             -op * q * (C * dy + B * dx),
@@ -193,10 +257,10 @@ def blend_bwd_plain(pair_data, tile_start, tile_count, grid_x, width, height, ch
             -op * q * dx * dy,
             -0.5 * op * q * dy * dy,
             q,
-        ] + g_feat
-        sums = torch.stack(per_pixel, dim=0).sum(dim=-1)  # [6 + C, Tn]
-        slot = (start + k)[valid]
-        grads[: 6 + channels, slot] = sums[:, valid]
+        ] + list(torch.stack(g_feats, dim=2))
+        sums = torch.stack(per_pixel, dim=0).sum(dim=-1)  # [6 + C, m, K]
+        grads[: 6 + channels, (start[:m, None] + ks)[valid]] = sums[:, valid]
+        k_hi = k_lo
     return grads
 
 

@@ -1,5 +1,6 @@
 """What the reference-scale entry points share: timing with the card
-synchronised, and where and how a record is written."""
+synchronised, detection's pair demand, and where and how a record is
+written."""
 
 from __future__ import annotations
 
@@ -48,3 +49,18 @@ def write_report(path: str, report: dict):
     with open(path, "w") as f:
         json.dump(report, f, indent=2)
     print(f"record: {path}", flush=True)
+
+
+def pair_demand(decisions: list[dict]) -> list[dict]:
+    """Per mid-refine detection in a run's log entries: its two renders'
+    largest pair demand over the cameras, and the refine's largest demand of
+    one render before it (from the unbind decision that follows the
+    detection's telemetry)."""
+    out = []
+    for tel, dec in zip(decisions, decisions[1:]):
+        if "detect/max_pairs" in tel and "unbind_changed" in dec:
+            out.append({"iteration": dec["iteration"], "detect_max_pairs": tel["detect/max_pairs"],
+                        "detect_max_pairs_solid": tel["detect/max_pairs_solid"],
+                        "refine_max_pairs": dec["refine_max_pairs"],
+                        "solid_over_refine": tel["detect/max_pairs_solid"] / max(dec["refine_max_pairs"], 1)})
+    return out

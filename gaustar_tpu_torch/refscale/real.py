@@ -123,7 +123,8 @@ def precision_recall(flag: np.ndarray, changed: np.ndarray) -> dict:
 
 def detection(params, config, topo, det_cams, det_depths, changed, log=print) -> dict:
     """Each of DETECTORS over the detection rig: precision and recall at
-    FLAG and of the cc-selected faces, coverage, observed fraction, wall."""
+    FLAG and of the cc-selected faces, coverage, observed fraction, wall, and
+    the pair demand of its two renders (the largest num_pairs over the rig)."""
     dev = params.points.device
     batch = stack_cameras(det_cams)
     faces, adj = config.faces.cpu().numpy(), np.asarray(topo.adj_faces)
@@ -136,7 +137,8 @@ def detection(params, config, topo, det_cams, det_depths, changed, log=print) ->
         rows[label] = {"threshold_0.6": precision_recall(flag, changed),
                        "cc_selected": precision_recall(cc_select(flag, faces, adj), changed),
                        "coverage_mean": float(tel.coverage_per_cam.mean()),
-                       "observed_fraction": tel.observed_fraction, "wall_s": wall}
+                       "observed_fraction": tel.observed_fraction, "wall_s": wall,
+                       "max_pairs": tel.max_pairs, "max_pairs_solid": tel.max_pairs_solid}
         log(f"detection {label}: {rows[label]}")
     return rows
 
@@ -215,6 +217,8 @@ def run(iters: int = 400, n_cams: int = 32, detect_cams: int = 160, device="cuda
     report["gt_render_s"] = cap["gt_render_s"]
     (params, config, topo, hist), report["refine_s"] = common.clocked(dev, lambda: refine_body(cap, iters, dev))
     report["refine_final_loss"] = hist[-1]["loss"] if hist else None
+    # The refine's largest pair demand of one render among its logged iterations.
+    report["refine_max_pairs_logged"] = max((int(h["num_pairs"]) for h in hist), default=None)
     log(f"refine {iters} iterations: {report['refine_s']:.1f} s, final loss {report['refine_final_loss']}")
     (det_cams, det_depths), report["detect_gt_depth_s"] = common.clocked(
         dev, lambda: detection_rig(cap, detect_cams, dev))

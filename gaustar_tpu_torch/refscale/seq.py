@@ -16,7 +16,8 @@ warp_mesh_using_flow) is timed with the card synchronised; each frame's
 own stage seconds come from run_sequence. The record, with each
 detection's telemetry and unbind decision, whether each frame updated and
 wrote its checkpoint and the GT bytes resident on the card, goes to
-build/refscale/seq.json (`--out`).
+build/refscale/seq.json (`--out`), with each mid-refine detection's pair
+demand beside the refine's (common.pair_demand).
 """
 
 from __future__ import annotations
@@ -92,6 +93,7 @@ def run(root: str, iters: int, n_cams: int, device="cuda", log=print) -> dict:
               "dataset_build_s": build_s, "stages": stages, "sequence_wall_s": wall,
               "frame_seconds": [f["seconds"] for f in frames], "cc_update_num": [f["cc_update_num"] for f in frames],
               "warp": [f["warp"] for f in frames], "detection_and_unbind": decisions,
+              "pair_demand": common.pair_demand(decisions),
               # GT images (RGB) and depths in float32, as FrameData holds them on the card.
               "gt_resident_bytes": n_cams * w * h * (3 + 1) * 4}
     for fi in range(2):

@@ -355,7 +355,9 @@ def refine_frame(
     once, before the step at `cfg.loose_bind_from`. If at least
     `cfg.unbind_threshold` gaussians are fully flagged, the model is
     loose-bound: the same leaves and Adam state, with the delta regularizers
-    on. Returns (params, model_config, history).
+    on; `log_fn` then receives the decision with `refine_max_pairs`, the
+    largest pair demand of one render among the iterations before it.
+    Returns (params, model_config, history).
 
     `config_dump_path`: write the run's hyperparameters as json
     (refine.py:459-519). `checkpoint_every` > 0 with `checkpoint_path`:
@@ -396,6 +398,7 @@ def refine_frame(
     if pre_sh_dc is None:
         pre_sh_dc = params.sh_dc.detach()[:, 0, :] * 0.0
     history = []
+    max_pairs = 0
 
     start_it = 1
     if resume and checkpoint_path is not None and os.path.exists(checkpoint_path):
@@ -430,12 +433,14 @@ def refine_frame(
                 params, model_config = sugar.loose_bound(params, model_config)
                 unbind_weight = torch.as_tensor(w, dtype=torch.float32, device=unbind_weight.device)
             if log_fn:
-                log_fn({"iteration": it, "unbind_changed": n_changed, "loose_bind": model_config.loose_bind})
+                log_fn({"iteration": it, "unbind_changed": n_changed, "loose_bind": model_config.loose_bind,
+                        "refine_max_pairs": max_pairs})
 
         loss, loss_dict = train_step(
             params, opt_state, lr_fn, model_config, data, cam_idx, it, cfg, raster_cfg,
             sh_deg_at(it, cfg), unbind_weight, pre_sh_dc,
         )
+        max_pairs = max(max_pairs, loss_dict["num_pairs"])
         if log_every and it % log_every == 0:
             entry = {k: float(v) for k, v in loss_dict.items()}
             entry["iteration"] = it

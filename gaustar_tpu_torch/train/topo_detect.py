@@ -101,6 +101,11 @@ class DetectTelemetry:
     # The per-camera loop (both renders, the gates, the [C, V] stacks):
     # between CUDA events on a card, the host clock on the CPU.
     device_ms: float = 0.0
+    # The largest pair demand (num_pairs) over the cameras of the normal
+    # depth render and of the solid-surface one: what a static pair capacity
+    # must hold for these renders to be whole.
+    max_pairs: int = 0
+    max_pairs_solid: int = 0
 
     @property
     def healthy(self) -> bool:
@@ -112,6 +117,8 @@ class DetectTelemetry:
             "detect/coverage_min": float(self.coverage_per_cam.min()),
             "detect/observed_fraction": float(self.observed_fraction),
             "detect/flagged_faces": int(self.flagged_faces),
+            "detect/max_pairs": int(self.max_pairs),
+            "detect/max_pairs_solid": int(self.max_pairs_solid),
         }
 
 
@@ -129,7 +136,8 @@ def _detect_cam_body(
     cfg: TopoDetectConfig,
 ):
     """One camera's detection work on the device: ([V] masked vertex loss,
-    [V] bool visibility)."""
+    [V] bool visibility, (num_pairs of the normal render, of the solid
+    one)). The pair counts are host ints each render already synced."""
     render_depth, aux_r = sugar.render_depth(
         render_params, config, cam, max_depth=cfg.max_depth, raster_config=raster_cfg
     )
@@ -178,7 +186,7 @@ def _detect_cam_body(
 
     loss_map = torch.clamp_max(depth_diff * (1.0 - edge_vis) * 10.0, 2.0)
     vert_loss, _ = query(loss_map, rc)
-    return torch.where(visual, vert_loss, torch.zeros_like(vert_loss)), visual
+    return torch.where(visual, vert_loss, torch.zeros_like(vert_loss)), visual, (aux_r.num_pairs, aux_s.num_pairs)
 
 
 def detection_params(params: sugar.SuGaRParams, solid_opacity: float | None) -> sugar.SuGaRParams:
@@ -227,9 +235,9 @@ def detect_topo_err(
     def camera_loop():
         bodies = [_detect_cam_body(render_params, config, index_camera(cameras, i), gt[i], gate_floor,
                                    raster_cfg, cfg) for i in range(n_cams)]
-        return torch.stack([b[0] for b in bodies]), torch.stack([b[1] for b in bodies])
+        return torch.stack([b[0] for b in bodies]), torch.stack([b[1] for b in bodies]), [b[2] for b in bodies]
 
-    (vls, viss), loop_ms = device_ms(dev, camera_loop)
+    (vls, viss, pairs), loop_ms = device_ms(dev, camera_loop)
     # The [C, V] stacks cross to the host once.
     vert_loss_total = vls.cpu().numpy().astype(np.float64)[:, :vert_num]
     vert_visual_total = viss.cpu().numpy()[:, :vert_num]
@@ -247,6 +255,8 @@ def detect_topo_err(
         n_cameras=n_cams,
         n_vertices=vert_num,
         device_ms=loop_ms,
+        max_pairs=max(p[0] for p in pairs),
+        max_pairs_solid=max(p[1] for p in pairs),
     )
     if not last_telemetry.healthy:
         msg = (

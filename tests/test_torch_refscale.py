@@ -235,10 +235,10 @@ def test_warp160_matches_jax_at_40_cameras(tmp_path, monkeypatch):
         assert round(report[k], 2 if "mm" in k else 1) == want[k]
 
 
-@pytest.mark.parametrize("name", ["frame", "seq", "real", "warp160"])
+@pytest.mark.parametrize("name", ["frame", "seq", "real", "warp160", "field_init", "field_batch", "demo"])
 def test_entry_points_refuse_to_run_without_a_card(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    mod = importlib.import_module(f"gaustar_tpu_torch.refscale.{name}")
+    mod = importlib.import_module("gaustar_tpu_torch.demo" if name == "demo" else f"gaustar_tpu_torch.refscale.{name}")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mod.main(["--out", os.devnull])
 
