@@ -189,9 +189,21 @@ Phases, one line of output each (or a few):
              launch count differs from what the run implies (one forward
              per GT render, detection render, fusion view and PSNR render;
              one forward and one backward per iteration).
+ 16 bench    gaustar_tpu_torch.bench.run on the reference scene at each batch
+             of BENCH_BATCHES (B = 4, then 1; bench.WARMUP steps, then
+             bench.STEPS timed), with each run's bench JSON line; then
+             gaustar_tpu_torch.bench_scaling.run on the cards (one rank a
+             card, so on one card the 1-rank step alone) and its JSON line.
+             It fails unless every loss is finite, each bench run launched
+             each kernel exactly steps x B times, the first B = 4 step's
+             largest num_pairs equals JAX_DEMAND_PAIRS (all four cameras
+             from the initial parameters), the scaling run reports the card
+             count, no size beyond it, one launch of each kernel per rank,
+             camera and step, and no efficiency on one card.
 The kernels line adds launches_strips, launches_dist (summed over the ranks
-of both steps), launches_tools, launches_refscale and launches_demo, and
-each kernel's max |error| on the strip against its plain version.
+of both steps), launches_tools, launches_refscale, launches_demo and
+launches_bench (both bench runs and the scaling ranks), and each kernel's
+max |error| on the strip against its plain version.
 The last line is the JSON result {"ok": true, "device": {...}}. Any failed
 phase raises, and the script exits non-zero without that line.
 """
@@ -358,6 +370,9 @@ REFSCALE_MAX_WARP_ERR_MM = 1.0
 # So both frames loose-bind and graft.
 DEMO_ITERS = 600
 DEMO_LOOSE_BIND = [True, True]
+# The bench (phase 16, gaustar_tpu_torch/bench.py and bench_scaling.py): the
+# camera batches it runs, in order.
+BENCH_BATCHES = (4, 1)
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -408,28 +423,20 @@ def random_scene(torch, n, size, seed, device):
     return t(means), quat_scale_to_cov3d(t(scales), t(quats)), t(opac), feats, cam
 
 
-def timed_call(torch, fn):
-    """(fn(), its ms between CUDA events)."""
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    out = fn()
-    b.record()
-    torch.cuda.synchronize()
-    return out, a.elapsed_time(b)
-
-
 def check_forward(torch, bc, inputs, channels, label, fwd_only=False, tile_base=0):
     """(plain raw state, the kernel's split for the backward, max |error| of
     colour and T, the plain call's ms). `fwd_only`: the kernel runs as a
     forward-only render calls it, blend_raw under no_grad (split None)."""
+    from gaustar_tpu_torch.utils.general import device_ms
+
     pd, start, count, gx, W, H = inputs
     if fwd_only:
         with torch.no_grad():
             raw_k, split = bc.blend_raw(pd, start, count, gx, W, H, channels, tile_base), None
     else:
         raw_k, split = bc.blend_fwd_split(pd, start, count, gx, W, H, channels, tile_base)
-    raw_p, plain_ms = timed_call(torch, lambda: bc.blend_fwd_plain(pd, start, count, gx, W, H, channels, tile_base))
+    raw_p, plain_ms = device_ms(torch.device("cuda"),
+                                lambda: bc.blend_fwd_plain(pd, start, count, gx, W, H, channels, tile_base))
     rows = [0, 1, 2, 3, 6]
     err = float((raw_k[:, rows] - raw_p[:, rows]).abs().max())
     nc_bad = float((raw_k[:, 4] != raw_p[:, 4]).float().mean())
@@ -444,11 +451,13 @@ def check_forward(torch, bc, inputs, channels, label, fwd_only=False, tile_base=
 def check_backward(torch, bc, inputs, channels, raw, split, label, tile_base=0):
     """(max |error| of the gradients, the plain call's ms). The kernel reads
     the forward's test bits (`split`), as the main path's backward does."""
+    from gaustar_tpu_torch.utils.general import device_ms
+
     pd, start, count, gx, W, H = inputs
     ct = seeded_cotangent(torch, raw, 7)
     g_k = bc.blend_bwd_cuda(pd, start, count, gx, W, H, channels, raw, ct, split, tile_base)
-    g_p, plain_ms = timed_call(torch, lambda: bc.blend_bwd_plain(pd, start, count, gx, W, H, channels, raw, ct,
-                                                                 tile_base))
+    g_p, plain_ms = device_ms(torch.device("cuda"),
+                              lambda: bc.blend_bwd_plain(pd, start, count, gx, W, H, channels, raw, ct, tile_base))
     worst = 0.0
     max_abs = float((g_k - g_p).abs().max())
     for row in range(6 + channels):
@@ -524,20 +533,6 @@ def blend_bounds(n_tiles, n_pairs, channels, w):
     bwd = bound(4 * nf * w["bwd_slots"] + tiles + (2 + channels + 1) * row * w["active"] + 4 * nf * n_pairs,
                 TEST_OPS * w["bwd_evals"] + bwd_included_ops(channels) * w["included"])
     return fwd, bwd
-
-
-def cuda_ms(torch, fn, iters, warmup=2):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
 
 
 def device_kernels(torch, fn):
@@ -853,6 +848,7 @@ def prep_phase(torch, bc):
     from gaustar_tpu_torch.tools import depth_fusion, mesh_render, raft
     from gaustar_tpu_torch.tools.geometry import resize_linear
     from gaustar_tpu_torch.utils.general import device_ms, full_float32
+    from gaustar_tpu_torch.utils.profiling import cuda_ms
     from gaustar_tpu_torch.utils.synthetic import REF_FOCAL, REF_H, REF_W, sphere_depth
 
     center, radius = field_init.CENTER, field_init.RADIUS
@@ -877,8 +873,8 @@ def prep_phase(torch, bc):
     pts01 = torch.rand((PREP_RAYS * fcfg.n_samples, 3), generator=torch.Generator(device="cuda").manual_seed(1),
                        device="cuda")
     with torch.no_grad():
-        enc_ms = cuda_ms(torch, lambda: nf.hash_encode(field.tables, pts01, fcfg), iters=5)
-    enc_bwd_ms = cuda_ms(torch, lambda: nf.hash_encode(field.tables, pts01, fcfg).sum().backward(), iters=5)
+        enc_ms = cuda_ms(lambda: nf.hash_encode(field.tables, pts01, fcfg), iters=5)
+    enc_bwd_ms = cuda_ms(lambda: nf.hash_encode(field.tables, pts01, fcfg).sum().backward(), iters=5)
     log("prep", f"hash_encode of {len(pts01)} points ({fcfg.n_levels} levels x 8 corners): forward {enc_ms:.2f} ms, "
                 f"forward + backward {enc_bwd_ms:.2f} ms (CUDA events)")
     del pts01, field, out
@@ -942,13 +938,13 @@ def prep_phase(torch, bc):
     hs, ws = REF_H // 2, REF_W // 2
     t1 = torch.as_tensor(resize_linear(img1, hs, ws), device="cuda").permute(2, 0, 1)[None].float()
     t2 = torch.as_tensor(resize_linear(img2, hs, ws), device="cuda").permute(2, 0, 1)[None].float()
-    dir_ms = cuda_ms(torch, lambda: raft.raft_forward(model, t1, t2, RAFT_ITERS), iters=3, warmup=1)
+    dir_ms = cuda_ms(lambda: raft.raft_forward(model, t1, t2, RAFT_ITERS), iters=3, warmup=1)
     peak_raft = torch.cuda.max_memory_allocated() / 2**30
     # The correlation lookup alone, as one update iteration calls it (a kernel candidate).
     with torch.no_grad(), full_float32():
         pyramid = raft.build_corr_pyramid(model.fnet(2 * (t1 / 255.0) - 1), model.fnet(2 * (t2 / 255.0) - 1))
         coords = raft.coords_grid(1, hs // 8, ws // 8, "cuda") + 3.5
-        corr_ms = cuda_ms(torch, lambda: raft.corr_lookup(pyramid, coords), iters=10)
+        corr_ms = cuda_ms(lambda: raft.corr_lookup(pyramid, coords), iters=10)
     del pyramid
     cpu_model = raft.make_raft(params, "cpu")
     t0 = time.perf_counter()
@@ -1193,6 +1189,7 @@ def kernel_phases(torch, bc, t_start):
     from gaustar_tpu_torch.cameras import index_camera
     from gaustar_tpu_torch.train import refine
     from gaustar_tpu_torch.train.optimizer import OptimizationParams, adam_init, make_lr_fn
+    from gaustar_tpu_torch.utils.profiling import cuda_ms
     from gaustar_tpu_torch.utils.synthetic import blend_inputs, reference_scene, render_inputs, synthetic_frame
 
     # 3-4 kernels against their plain versions
@@ -1282,8 +1279,8 @@ def kernel_phases(torch, bc, t_start):
         the backward as the main path calls it: with the forward's test bits."""
         raw, split = bc.blend_fwd_split(*x, 4)
         ct = torch.randn(raw.shape, generator=torch.Generator(device="cuda").manual_seed(11), device="cuda")
-        return (cuda_ms(torch, lambda: bc.blend_fwd_cuda(*x, 4), iters=50),
-                cuda_ms(torch, lambda: bc.blend_bwd_cuda(*x, 4, raw, ct, split), iters=50), raw, ct, split)
+        return (cuda_ms(lambda: bc.blend_fwd_cuda(*x, 4), iters=50),
+                cuda_ms(lambda: bc.blend_bwd_cuda(*x, 4, raw, ct, split), iters=50), raw, ct, split)
 
     inputs = blend_inputs(*full, 4)
     pd, start, count, gx, W, H = inputs
@@ -1354,6 +1351,7 @@ def strips_phase(torch, bc, scene):
     {kernel: launches} of the strip launches and the kernels' max |error|
     against the plain versions."""
     from gaustar_tpu_torch.cameras import index_camera
+    from gaustar_tpu_torch.utils.profiling import cuda_ms
     from gaustar_tpu_torch.utils.synthetic import blend_inputs, render_inputs
 
     params, config, data = scene
@@ -1394,11 +1392,11 @@ def strips_phase(torch, bc, scene):
     launches = dict(bc.LAUNCHES)
     expected = {"blend_fwd": sum(STRIP_SPLITS), "blend_bwd": sum(STRIP_SPLITS)}
 
-    fwd_ms = cuda_ms(torch, lambda: bc.blend_fwd_cuda(*inputs, 4), iters=20)
-    bwd_ms = cuda_ms(torch, lambda: bc.blend_bwd_cuda(*inputs, 4, raw_full, ct, split_full), iters=20)
+    fwd_ms = cuda_ms(lambda: bc.blend_fwd_cuda(*inputs, 4), iters=20)
+    bwd_ms = cuda_ms(lambda: bc.blend_bwd_cuda(*inputs, 4, raw_full, ct, split_full), iters=20)
     for d, r in strips.items():
-        f_ms = [cuda_ms(torch, lambda c=c: bc.blend_fwd_cuda(*c[0], 4, c[1]), iters=20) for c in r["calls"]]
-        b_ms = [cuda_ms(torch, lambda c=c: bc.blend_bwd_cuda(*c[0], 4, c[2], c[3], c[4], c[1]), iters=20)
+        f_ms = [cuda_ms(lambda c=c: bc.blend_fwd_cuda(*c[0], 4, c[1]), iters=20) for c in r["calls"]]
+        b_ms = [cuda_ms(lambda c=c: bc.blend_bwd_cuda(*c[0], 4, c[2], c[3], c[4], c[1]), iters=20)
                 for c in r["calls"]]
         log("strips", f"D_g={d}: {len(r['calls'])} strips of {r['calls'][0][0][1].shape[0]} tiles ({r['pad']} of "
                       f"padding, empty); forward rows 0-6 bit-equal to the full grid {r['fwd_equal']}; gradients "
@@ -1809,6 +1807,54 @@ def demo_phase(torch, bc):
     return launches
 
 
+def bench_phase(torch, bc):
+    """Phase 16: the bench at each of BENCH_BATCHES on the reference scene,
+    then the camera-DP scaling harness on the cards. Returns {kernel:
+    launches} summed over the bench runs and the scaling ranks."""
+    from gaustar_tpu_torch import bench, bench_scaling
+    from gaustar_tpu_torch.utils.synthetic import reference_scene
+
+    kind = torch.cuda.get_device_name(0)
+    scene = reference_scene("cuda")
+    n_gauss = scene[0].scales.shape[0]
+    steps = bench.WARMUP + bench.STEPS
+    total = {"blend_fwd": 0, "blend_bwd": 0}
+    for batch in BENCH_BATCHES:
+        bc.reset_launch_counts()
+        rec = bench.run(*scene, batch)
+        launches = dict(bc.LAUNCHES)
+        log("bench", json.dumps(bench.result(scene[2], batch, rec["step_s"], n_gauss, kind)))
+        log("bench", f"B={batch}: step {1e3 * rec['step_s']:.3f} ms ({bench.STEPS} steps after {bench.WARMUP}, "
+                     f"those {rec['warmup_s']:.2f} s); peak {rec['peak_bytes'] / 2**30:.3f} GiB; largest num_pairs "
+                     f"per step {rec['num_pairs']}; loss {rec['losses'][0]:.5f} -> {rec['losses'][-1]:.5f}; "
+                     f"launches {launches}")
+        if not all(np.isfinite(rec["losses"])):
+            fail(f"bench B={batch}: a non-finite loss {rec['losses']}")
+        expected = {"blend_fwd": steps * batch, "blend_bwd": steps * batch}
+        if launches != expected:
+            fail(f"bench B={batch} launched the kernels {launches}, expected {expected}")
+        if batch == 4 and rec["num_pairs"][0] != JAX_DEMAND_PAIRS:
+            fail(f"bench B=4: the first step's largest num_pairs {rec['num_pairs'][0]}, expected {JAX_DEMAND_PAIRS}")
+        total = {k: total[k] + launches[k] for k in total}
+    del scene
+    torch.cuda.empty_cache()
+
+    rep = bench_scaling.run("cuda")
+    log("bench", json.dumps(rep))
+    cards = torch.cuda.device_count()
+    sizes = [int(n) for n in rep["detail"]]
+    if rep["cards"] != cards or max(sizes) > cards:
+        fail(f"bench_scaling ran sizes {sizes} on {rep['cards']} of {cards} cards")
+    for n, d in rep["detail"].items():
+        per_kernel = int(n) * (1 + bench_scaling.STEPS) * bench_scaling.CAMS_PER_RANK
+        if not all(np.isfinite(d["losses"])) or d["launches"] != {"blend_fwd": per_kernel, "blend_bwd": per_kernel}:
+            fail(f"bench_scaling at {n} ranks: losses {d['losses']}, launches {d['launches']}, expected {per_kernel}")
+        total = {k: total[k] + d["launches"][k] for k in total}
+    if cards == 1 and rep["value"] is not None:
+        fail("bench_scaling reported an efficiency on one card")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1886,6 +1932,11 @@ def main() -> int:
     t0 = time.perf_counter()
     demo_launches = demo_phase(torch, bc)
     log("demo", f"phase wall {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    # 16 bench: the refine step's throughput and the camera-DP scaling harness
+    t0 = time.perf_counter()
+    bench_launches = bench_phase(torch, bc)
+    log("bench", f"phase wall {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         k["launches_topo"] = topo_launches[k["name"]]
         k["launches_seq"] = seq_launches[k["name"]]
@@ -1896,6 +1947,7 @@ def main() -> int:
         k["launches_tools"] = tools_launches[k["name"]]
         k["launches_refscale"] = refscale_launches[k["name"]]
         k["launches_demo"] = demo_launches[k["name"]]
+        k["launches_bench"] = bench_launches[k["name"]]
         k["max_abs_err_strip"] = strip_errs[k["name"]]
     kernels[0]["max_abs_err_fwd_only"] = fwd_only_err
     log("done", f"total {time.perf_counter() - t_start:.1f} s")

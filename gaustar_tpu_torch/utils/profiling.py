@@ -1,8 +1,11 @@
 """Timing and debug utilities (counterpart of gaustar_tpu/utils/profiling.py).
 
-  - `loop_bench`: the time per iteration of `fn(i, *args)` run `iters` times
-    back to back, between CUDA events on a card (utils/general.device_ms),
-    the host clock on the CPU.
+  - `cuda_ms`: the milliseconds per call of `fn()` after warm-up calls, the
+    calls timed back to back between CUDA events on a card
+    (utils/general.device_ms), on the host clock on the CPU: the one timer of
+    the package, `chip_smoke.py`, `profile_step.py` and the bench;
+  - `loop_bench`: the same in seconds for `fn(i, *args)`, the JAX
+    package's signature.
   - `trace`: a torch.profiler trace (CPU and, on a card, CUDA activity)
     around a block, written as a Chrome trace into a directory.
   - `debug_validate`: finiteness and capacity guards for a training loop.
@@ -17,19 +20,24 @@ import torch
 from gaustar_tpu_torch.utils.general import device_ms, resolve_device
 
 
+def cuda_ms(fn, iters: int, warmup: int = 2, device="cuda") -> float:
+    """Milliseconds per call of `fn()` on `device`: `warmup` calls (first
+    launches, builds, allocations), the card synchronised, then `iters`
+    calls timed together."""
+    dev = resolve_device(device)
+    for _ in range(warmup):
+        fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    _, ms = device_ms(dev, lambda: [fn() for _ in range(iters)])
+    return ms / iters
+
+
 def loop_bench(fn, *args, iters: int = 8, device="cuda") -> float:
     """Seconds per iteration of `fn(i, *args)` on `device`: one warm-up call
-    (first launches, builds, allocations), then `iters` calls timed
-    together."""
-    dev = resolve_device(device)
-    fn(0, *args)
-
-    def run():
-        for i in range(iters):
-            fn(i, *args)
-
-    _, ms = device_ms(dev, run)
-    return ms / 1e3 / iters
+    fn(0, *args), then fn(i, *args) for i < `iters` timed together."""
+    calls = iter([0, *range(iters)])
+    return cuda_ms(lambda: fn(next(calls), *args), iters, warmup=1, device=device) / 1e3
 
 
 class trace:

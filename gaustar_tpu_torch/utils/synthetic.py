@@ -126,24 +126,29 @@ def synthetic_frame(n_cams=4, w=48, h=48, subdiv=1, seed=0, raster_cfg=None, rad
     return init_params, config, data, target, raster_cfg
 
 
-def reference_scene(device="cuda"):
+def reference_scene(device="cuda", w=None, h=None, n_lat=None, n_lon=None, n_cams=4):
     """The full-width refine workload of bench.py:build_scene, built by the
     port: (params, config, FrameData, RasterConfig). GT content does not
     change the work: a gray disc where the sphere projects on a green
-    screen, depth 4 inside and 10.5 outside."""
+    screen, depth 4 inside and 10.5 outside. The keywords shrink it for
+    tests (`w`, `h`, the sphere's `n_lat` x `n_lon`) or widen the ring of
+    cameras (`n_cams`); the focal length stays REF_FOCAL, as in build_scene.
+    The sizes left out are the module's REF_* at call time."""
     dev = resolve_device(device)
-    verts, faces = uv_sphere(REF_LAT, REF_LON, radius=0.6, center=(0.0, 0.0, 4.0))
+    w, h = w or REF_W, h or REF_H
+    n_lat, n_lon = n_lat or REF_LAT, n_lon or REF_LON
+    verts, faces = uv_sphere(n_lat, n_lon, radius=0.6, center=(0.0, 0.0, 4.0))
     rng = np.random.default_rng(0)
     colors = rng.uniform(0.2, 0.9, size=(len(verts), 3)).astype(np.float32)
     params, config = sugar.init_sugar(verts, faces, vertex_colors=colors, device=dev)
-    cams = ring_cameras(4, w=REF_W, h=REF_H, focal=REF_FOCAL, device=dev)
+    cams = ring_cameras(n_cams, w=w, h=h, focal=REF_FOCAL, device=dev)
 
-    yy, xx = np.mgrid[0:REF_H, 0:REF_W].astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     r_px = REF_FOCAL * 0.6 / 3.4
-    disc = ((xx - REF_W / 2) ** 2 + (yy - REF_H / 2) ** 2) < r_px**2
+    disc = ((xx - w / 2) ** 2 + (yy - h / 2) ** 2) < r_px**2
     gt = np.where(disc[..., None], 0.5, np.array([0.0, 1.0, 0.0], np.float32))
-    gt_img = np.broadcast_to(gt, (4, REF_H, REF_W, 3)).astype(np.float32)
-    gt_depth = np.broadcast_to(np.where(disc, 4.0, 10.5).astype(np.float32), (4, REF_H, REF_W))
+    gt_img = np.broadcast_to(gt, (n_cams, h, w, 3)).astype(np.float32)
+    gt_depth = np.broadcast_to(np.where(disc, 4.0, 10.5).astype(np.float32), (n_cams, h, w))
     with torch.no_grad():
         data = _frame_data(verts, faces, cams, np.ascontiguousarray(gt_img),
                            np.ascontiguousarray(gt_depth), dev)

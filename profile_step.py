@@ -45,26 +45,14 @@ def device_busy_us(events):
     return busy, len(spans)
 
 
-def cuda_ms(torch, fn, iters=5, warmup=2):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
-
-
 def wall_and_device_ms(torch, fn, iters=5):
     """(CUDA-event ms, device-busy ms) per call of `fn`: where the first is
     larger, the device waited on the host between kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    wall = cuda_ms(torch, fn, iters)
+    from gaustar_tpu_torch.utils.profiling import cuda_ms
+
+    wall = cuda_ms(fn, iters)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
@@ -156,6 +144,7 @@ def blend_tile_ms(torch, params, config, data):
     device ms of each CUDA kernel a wrapper launches."""
     from gaustar_tpu_torch.cameras import index_camera
     from gaustar_tpu_torch.ops import blend_cuda as bc
+    from gaustar_tpu_torch.utils.profiling import cuda_ms
     from gaustar_tpu_torch.utils.synthetic import blend_inputs, render_inputs
 
     means, cov, opac, feats, cam = render_inputs(params, config, index_camera(data.cameras, 0))
@@ -167,8 +156,8 @@ def blend_tile_ms(torch, params, config, data):
             ct = torch.randn(raw.shape, device=raw.device)
             fwd = lambda: bc.blend_fwd_cuda(*inputs, 4)  # noqa: E731
             bwd = lambda: bc.blend_bwd_cuda(*inputs, 4, raw, ct, split)  # noqa: E731
-            out[(state, label)] = (inputs[0].shape[1], int(inputs[2].max()), cuda_ms(torch, fwd, 20),
-                                   cuda_ms(torch, bwd, 20), device_kernel_ms(torch, fwd),
+            out[(state, label)] = (inputs[0].shape[1], int(inputs[2].max()), cuda_ms(fwd, 20),
+                                   cuda_ms(bwd, 20), device_kernel_ms(torch, fwd),
                                    device_kernel_ms(torch, bwd))
     return out
 

@@ -43,5 +43,6 @@ def test_port_has_modules():
                      "parallel/gauss_shard.py", "tools/registration.py", "tools/network_gui.py",
                      "tools/cmr_convert.py", "utils/profiling.py", "refscale/scenes.py", "refscale/frame.py",
                      "refscale/seq.py", "refscale/real.py", "refscale/warp160.py",
-                     "refscale/field_init.py", "refscale/field_batch.py", "demo.py"):
+                     "refscale/field_init.py", "refscale/field_batch.py", "demo.py", "bench.py",
+                     "bench_scaling.py"):
         assert required in names
