@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
 Phases, one line of output each (or a few):
-  1 card     the device name and `nvidia-smi` name / power limit;
+  1 card     the device name and `nvidia-smi` name / power limit, and the
+             host's CPU model;
   2 build    nvcc builds of the blend kernels and the nvJPEG binding
              (csrc/*.cu, one nvcc each, all at once), with seconds and the
              -Xptxas -v register / shared-memory report;
@@ -1863,6 +1864,7 @@ def main() -> int:
         return 1
     from gaustar_tpu_torch.ops import _build
     from gaustar_tpu_torch.ops import blend_cuda as bc
+    from gaustar_tpu_torch.utils.general import cpu_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1874,6 +1876,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log("card", f"{kind}; torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi, flush=True)
+    log("host", cpu_model())
 
     # 2 build
     t0 = time.perf_counter()

@@ -201,6 +201,7 @@ def main(argv=None) -> dict:
     out = result(data, args.batch, rec["step_s"], n_gauss, card["device"])
     if "nvidia_smi" in card:
         print(card["nvidia_smi"], file=sys.stderr)
+    print(f"# host {card['host_cpu']}", file=sys.stderr)
     peak = "" if rec["peak_bytes"] is None else f"; peak {rec['peak_bytes'] / 2**30:.3f} GiB"
     print(f"# step {1e3 * rec['step_s']:.3f} ms ({args.steps} steps after {WARMUP}, those {rec['warmup_s']:.1f} "
           f"s), setup {setup_s:.1f} s, device {card['device']}, n_gauss={n_gauss}, largest num_pairs of a step "

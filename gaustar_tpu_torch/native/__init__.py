@@ -16,13 +16,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import platform
 import shutil
 import subprocess
 import time
 from pathlib import Path
 
 import numpy as np
+
+from gaustar_tpu_torch.utils.general import cpu_model
 
 SOURCE = Path(__file__).resolve().parent / "meshops.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
@@ -32,16 +33,8 @@ _lib = None
 BUILD_LOG: dict = {}  # {"seconds": s, "log": g++ output} of a build in this process
 
 
-def _cpu_model() -> str:
-    try:
-        with open("/proc/cpuinfo") as f:
-            return next((ln for ln in f if ln.startswith("model name")), platform.machine())
-    except OSError:
-        return platform.machine()
-
-
 def lib_path() -> Path:
-    key = SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode() + _cpu_model().encode()
+    key = SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode() + cpu_model().encode()
     return BUILD_DIR / f"libmeshops-{hashlib.sha1(key).hexdigest()[:12]}.so"
 
 

@@ -11,6 +11,8 @@ import time
 
 import torch
 
+from gaustar_tpu_torch.utils.general import cpu_model
+
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
@@ -28,6 +30,21 @@ def clocked(dev: torch.device, fn):
     return out, time.perf_counter() - t0
 
 
+def build_libraries(dev: torch.device) -> float:
+    """Build what a frame's stages load at first use, so that no timed
+    stage holds a compiler: the native mesh library (g++; fusion decimates
+    with it) and, on a card, the blend kernels (nvcc). Returns the wall
+    seconds (about 0 when both are built already)."""
+    from gaustar_tpu_torch import native
+    from gaustar_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    native.build()
+    if dev.type == "cuda":
+        _build.build(["blend_fwd", "blend_bwd"])
+    return time.perf_counter() - t0
+
+
 def default_out(name: str) -> str:
     """build/refscale/<name>.json in the repository's checkout."""
     return os.path.join(REPO_ROOT, "build", "refscale", f"{name}.json")
@@ -35,12 +52,13 @@ def default_out(name: str) -> str:
 
 def device_record(dev: torch.device) -> dict:
     """The device a record was taken on: the card's name and, from
-    nvidia-smi, its name and power limit."""
+    nvidia-smi, its name and power limit; and the host's CPU model, since
+    a host-bound step's time moves with the host."""
     if dev.type != "cuda":
-        return {"device": str(dev)}
+        return {"device": str(dev), "host_cpu": cpu_model()}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()
-    return {"device": torch.cuda.get_device_name(dev), "nvidia_smi": smi[dev.index or 0]}
+    return {"device": torch.cuda.get_device_name(dev), "nvidia_smi": smi[dev.index or 0], "host_cpu": cpu_model()}
 
 
 def write_report(path: str, report: dict):

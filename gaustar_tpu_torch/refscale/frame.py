@@ -12,7 +12,10 @@ timed segments; detection over every camera (twice: first call, steady);
 the mesh update run_sequence runs on a change (TSDF fusion from the
 orbit and rig views at 8 mm, decimated to 150,000 faces; the surgery over
 five AABB pads); the half-budget re-refine on the updated mesh. A failed
-update raises. `--cams 160 --iters 200` is the 160-camera residency probe.
+update raises. `--cams 160 --iters 2000` is the configuration of the JAX
+record REFSCALE160.json, `--batch 4` that of GAUSTAR_REFSCALE_BATCH=4. The
+native library and the blend kernels are built before the clock starts
+(`build_s`); `steady_mpix_s` counts the batch's pixels.
 
 Cameras are drawn as the JAX runner draws them: one
 `rng.integers(0, n_cams, size=(50,))` (or (50, B) with a camera batch) per
@@ -138,6 +141,7 @@ def run(params, config, data, raster_cfg, iters: int, batch: int = 1, log=print)
     faces = config.faces.cpu().numpy()
     report = {"n_gaussians": int(params.scales.shape[0]), "n_faces": len(faces), "n_cams": n_cams,
               "resolution": [data.cameras.width, data.cameras.height], "iterations": iters, "camera_batch": batch}
+    report["build_s"] = common.build_libraries(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     rng = np.random.default_rng(0)
@@ -185,7 +189,9 @@ def run(params, config, data, raster_cfg, iters: int, batch: int = 1, log=print)
         report["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
     steady = report["refine"]["segments"][-1]["ms_per_iter"]
     report["steady_ms_per_iter"] = steady
-    report["steady_mpix_s"] = data.cameras.width * data.cameras.height / (steady / 1e3) / 1e6
+    # Pixels a second: an iteration renders `batch` cameras (the JAX
+    # script's record, refscale_frame.py:418, counts one).
+    report["steady_mpix_s"] = data.cameras.width * data.cameras.height * batch / (steady / 1e3) / 1e6
     return {"report": report, "params": params, "face_w": face_w, "update": out, "re_params": re_params}
 
 

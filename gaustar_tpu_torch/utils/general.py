@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import platform
 import time
 
 import numpy as np
@@ -32,6 +33,31 @@ def device_ms(dev: torch.device, fn):
     t0 = time.perf_counter()
     out = fn()
     return out, 1e3 * (time.perf_counter() - t0)
+
+
+def cpu_model() -> str:
+    """The host's CPU model: the first processor's "model name" in
+    /proc/cpuinfo. Where that reads "unknown" (some virtualised kernels), the
+    vendor, family, model and clock the same block gives; the machine's
+    architecture where there is no /proc/cpuinfo."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    if fields:
+                        break
+                    continue
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    name = fields.get("model name", "")
+    if name and name != "unknown":
+        return name
+    known = [f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model", "cpu MHz")
+             if fields.get(k) not in (None, "", "unknown")]
+    return ", ".join(known) + " (no model name)" if known else platform.machine()
 
 
 @contextlib.contextmanager

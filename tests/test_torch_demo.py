@@ -64,6 +64,7 @@ from gaustar_tpu_torch.train import topo_detect as ttd
 from gaustar_tpu_torch.utils.synthetic import ring_cameras, topology_scene
 from port_examples import load_example
 from port_helpers import one_thread  # noqa: F401  (autouse)
+from port_native import jax_native
 
 JAX_RCFG = JaxRasterConfig(max_pairs=1 << 16, chunk=32, max_per_tile=4096, impl="jax")
 SUBDIV, N_CAMS, SIZE, ITERS = 2, 8, 96, 8
@@ -115,6 +116,7 @@ def runs(tmp_path_factory):
     count (None without an update); every detection's face weights in call
     order (frame 0's mid-refine, frame 1's, the event's); cc_update_num of
     the event; the PSNRs."""
+    jax_native()  # the JAX run decimates its fused mesh natively
     root = tmp_path_factory.mktemp("demo")
     data = str(root / "data")
     out = {}

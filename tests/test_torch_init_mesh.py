@@ -19,6 +19,7 @@ from gaustar_tpu_torch.models import neural_field as tnf
 from gaustar_tpu_torch.train import init_mesh as tim
 from gaustar_tpu_torch.utils.synthetic import ring_cameras as t_ring
 from port_helpers import one_thread  # noqa: F401  (autouse)
+from port_native import jax_native
 
 CENTER = np.array([0.0, 0.0, 4.0])
 RADIUS = 0.5
@@ -155,6 +156,7 @@ def test_extract_from_the_same_parameters_matches_jax(trained):
     single voxel."""
     from scipy.spatial import cKDTree
 
+    jax_native()  # the JAX extraction smooths natively
     (jp, jcfg, jocc), _ = trained
     tp = bridge.field_params_from_numpy(_as_numpy(jp), "cpu")
     cfg = dict(INIT, target_faces=10**6)

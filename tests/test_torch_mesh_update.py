@@ -21,6 +21,7 @@ from gaustar_tpu_torch.cameras import index_camera
 from gaustar_tpu_torch.ops.rasterizer import RasterConfig
 from gaustar_tpu_torch.train import mesh_update as tmu
 from port_helpers import one_thread  # noqa: F401  (autouse)
+from port_native import jax_native
 
 
 JAX_RCFG = JaxRasterConfig(max_pairs=1 << 16, chunk=32, max_per_tile=4096, impl="jax")
@@ -87,6 +88,7 @@ def test_native_options_raise(scene, monkeypatch, tmp_path):
     sphere: their median radii within a quarter voxel (vertex-to-vertex
     distances are set by the 300-face spacing, not by the fit). Without a
     compiler for the native library they raise: there is no fallback."""
+    jax_native()  # the JAX side smooths and decimates natively
     jp, jc, jcams = scene["jax"]
     tp, tc, tcams = scene["port"]
     kw = dict(voxel_size=VOXEL, sdf_trunc=3 * VOXEL, use_orbit_cameras=True, max_dim=64, smooth=True,

@@ -9,11 +9,14 @@ import pytest
 from gaustar_tpu import native as jnative
 from gaustar_tpu.mesh.primitives import icosphere, uv_sphere
 from gaustar_tpu_torch import native as tnative
+from port_native import jax_native
 
 
-@pytest.fixture(scope="module", autouse=True)
-def jax_native_built():
-    assert jnative.HAVE_NATIVE, "the JAX package's libmeshops.so should build here (make, g++)"
+@pytest.fixture(scope="module")
+def jax_lib():
+    """The JAX package's libmeshops.so, loaded in this worker (its `make`
+    may still be running in another one: tests/port_native.py)."""
+    return jax_native(jnative)
 
 
 def _noisy_sphere(seed, subdiv=4):
@@ -23,7 +26,7 @@ def _noisy_sphere(seed, subdiv=4):
 
 
 @pytest.mark.parametrize("target", [600, 2000])
-def test_decimate_bit_equal(target):
+def test_decimate_bit_equal(jax_lib, target):
     verts, faces = _noisy_sphere(target)
     tv, tf = tnative.decimate(verts, faces, target)
     jv, jf = jnative.decimate(verts, faces, target)
@@ -32,7 +35,7 @@ def test_decimate_bit_equal(target):
     np.testing.assert_array_equal(tf, jf)
 
 
-def test_decimate_open_mesh_bit_equal():
+def test_decimate_open_mesh_bit_equal(jax_lib):
     verts, faces = uv_sphere(20, 30, radius=1.0)
     keep = verts[faces].mean(axis=1)[:, 2] < 0.5  # cut a cap: a border to keep
     tv, tf = tnative.decimate(verts, faces[keep], 300, aggressiveness=5.0)
@@ -42,14 +45,14 @@ def test_decimate_open_mesh_bit_equal():
 
 
 @pytest.mark.parametrize("iters,lam", [(1, 0.5), (10, 0.5), (5, 0.3)])
-def test_laplacian_smooth_bit_equal(iters, lam):
+def test_laplacian_smooth_bit_equal(jax_lib, iters, lam):
     verts, faces = _noisy_sphere(iters)
     out = tnative.laplacian_smooth(verts, faces, iters, lam)
     np.testing.assert_array_equal(out, jnative.laplacian_smooth(verts, faces, iters, lam))
     assert out.std() < verts.std()
 
 
-def test_knn3_and_face_components_bit_equal():
+def test_knn3_and_face_components_bit_equal(jax_lib):
     rng = np.random.default_rng(3)
     pts = np.concatenate([rng.normal(size=(3000, 3)), rng.normal(scale=0.01, size=(500, 3)) + 2.0]).astype(np.float32)
     np.testing.assert_array_equal(tnative.knn3_mean_sq_dist(pts), jnative.knn3_mean_sq_dist(pts, prefer_native=True))

@@ -43,6 +43,7 @@ from gaustar_tpu_torch.train.topo_detect import TopoDetectConfig
 from gaustar_tpu_torch.utils import synthetic
 from port_examples import load_example
 from port_helpers import one_thread  # noqa: F401  (autouse)
+from port_native import jax_native
 
 ITERS = 400
 N_CAMS, W, FOCAL = 12, 96, 200.0
@@ -219,6 +220,7 @@ def _within_lr(port, jax_params, iters, points):
 def both(request):
     """(the JAX run, with its re-refine on the port run's update; frame.run;
     the port's event on the JAX run's model)."""
+    jax_native()  # the JAX run decimates its fused mesh natively
     mp = pytest.MonkeyPatch()
     request.addfinalizer(mp.undo)
     ns, jp, jc, jd = _jax_scene(mp)
