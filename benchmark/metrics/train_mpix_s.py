@@ -1,0 +1,7 @@
+"""Pixels trained a second: W x H x cameras a step x the steps completed in
+the window, over the window's wall seconds (its start to the synchronize
+after its last step)."""
+
+
+def read(run):
+    return run.pixels_per_step * run.steps / run.window_s / 1e6
