@@ -395,6 +395,20 @@ def bwd_included_ops(c):
     return 29 + 8 * c + 6 + c
 
 
+def blend_launches() -> dict:
+    """The blend kernels' launches since the counters were last reset
+    (utils/profiling.COUNTS, counted where ops/blend_cuda.py launches)."""
+    from gaustar_tpu_torch.utils import profiling
+
+    return profiling.counts("blend_fwd", "blend_bwd")
+
+
+def reset_launches():
+    from gaustar_tpu_torch.utils import profiling
+
+    profiling.reset_counts()
+
+
 def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
@@ -631,7 +645,7 @@ def topo_phase(torch, bc):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    bc.reset_launch_counts()
+    reset_launches()
     t0 = time.perf_counter()
     p, c, d, topo, _ = sequence.refine_one_frame(
         seq, 1, sc["verts"], sc["faces"], sc["colors"], cams, sc["gt_images"], sc["gt_depths"], rcfg,
@@ -644,7 +658,7 @@ def topo_phase(torch, bc):
         seq, 1, p, c, d, topo, cams, sc["gt_images"], sc["gt_depths"], rcfg, detect_cfg=dcfg,
         log_fn=on_log, log_every=1)
     torch.cuda.synchronize()
-    launches = dict(bc.LAUNCHES)
+    launches = blend_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     det_post = topo_detect.last_telemetry
     fus = mesh_update.last_fusion
@@ -759,7 +773,7 @@ def seq_phase(torch, bc, root):
                                   refinement_iterations=SEQ_ITERS, disable_mesh_update=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    bc.reset_launch_counts()
+    reset_launches()
     t0 = time.perf_counter()
     final, final_config, frames = sequence.run_sequence(seq, warp_cfg=WarpConfig(**SEQ_WARP), device="cuda",
                                                         log_fn=on_log, log_every=1)
@@ -773,7 +787,7 @@ def seq_phase(torch, bc, root):
     torch.cuda.synchronize()
     t_render = 1e3 * (time.perf_counter() - t0)
     peak_render = torch.cuda.max_memory_allocated() / 2**30
-    launches = dict(bc.LAUNCHES)
+    launches = blend_launches()
 
     for rec, st in zip(frames, stamps):
         s, w = rec["seconds"], rec["warp"]
@@ -853,7 +867,7 @@ def prep_phase(torch, bc):
     from gaustar_tpu_torch.utils.synthetic import REF_FOCAL, REF_H, REF_W, sphere_depth
 
     center, radius = field_init.CENTER, field_init.RADIUS
-    bc.reset_launch_counts()
+    reset_launches()
 
     # The field initializer: training and extraction.
     rep, out = field_init.run(PREP_ITERS, PREP_GRID_RES, PREP_RAYS, PREP_CAMS, device="cuda",
@@ -978,7 +992,7 @@ def prep_phase(torch, bc):
                 f"(voxel {1e3 * FUSION_VOXEL} mm)")
     if not len(fused.faces) or not dist < FUSION_VOXEL:
         fail(f"the fused mesh left the sphere: median distance {dist:.4f} m")
-    launches = dict(bc.LAUNCHES)
+    launches = blend_launches()
     if any(launches.values()):
         fail(f"the preparation launched blend kernels: {launches}")
     return launches
@@ -1023,7 +1037,7 @@ def gs_phase(torch, bc, root):
     from gaustar_tpu_torch.utils.synthetic import REF_FOCAL, REF_H, REF_W, reference_scene, ring_cameras
 
     dev = torch.device("cuda")
-    bc.reset_launch_counts()
+    reset_launches()
     t_phase = time.perf_counter()
     params, config, data, raster_cfg = reference_scene("cuda")
     cams = ring_cameras(GS_CAMS, w=REF_W, h=REF_H, focal=REF_FOCAL, device="cuda")
@@ -1173,7 +1187,7 @@ def gs_phase(torch, bc, root):
     if tuple(img.shape) != (REF_H, REF_W, 3) or not torch.isfinite(img).all():
         fail("the composite render is not a finite full-width image")
 
-    launches = dict(bc.LAUNCHES)
+    launches = blend_launches()
     expected = {"blend_fwd": GS_CAMS + GS_ITERS + 2 * GS_CAMS + GS_KNOB_ITERS + 1,
                 "blend_bwd": GS_ITERS + GS_KNOB_ITERS}
     log("gs", f"launches {launches}, expected {expected} (fwd = {GS_CAMS} GT + {GS_ITERS} training + "
@@ -1242,12 +1256,12 @@ def kernel_phases(torch, bc, t_start):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    bc.reset_launch_counts()
+    reset_launches()
     t0 = time.perf_counter()
     out_params, _, history = refine.refine_frame(params, config, data, cfg, raster_cfg,
                                                  log_every=1, log_fn=on_log)
     torch.cuda.synchronize()
-    launches = dict(bc.LAUNCHES)
+    launches = blend_launches()
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     steps_ms = [1e3 * (b - a) for a, b in zip(stamps[WARMUP_STEPS - 1:], stamps[WARMUP_STEPS:])]
@@ -1264,15 +1278,15 @@ def kernel_phases(torch, bc, t_start):
     if not moved > 0:
         fail("refine_frame did not move the mesh vertices")
 
-    bc.reset_launch_counts()
+    reset_launches()
     opt_state = adam_init(out_params)
     lr_fn = make_lr_fn(OptimizationParams(), 1.0)
     loss_b, ld_b = refine.train_step(out_params, opt_state, lr_fn, config, data, [0, 1, 2, 3], 1,
                                      cfg, raster_cfg, 2)
     torch.cuda.synchronize()
-    if not np.isfinite(float(loss_b)) or dict(bc.LAUNCHES) != {"blend_fwd": 4, "blend_bwd": 4}:
-        fail(f"B=4 step: loss {float(loss_b)}, launches {bc.LAUNCHES}")
-    log("slice", f"compute_losses_multi B=4 step: loss {float(loss_b):.5f}, launches {dict(bc.LAUNCHES)}")
+    if not np.isfinite(float(loss_b)) or blend_launches() != {"blend_fwd": 4, "blend_bwd": 4}:
+        fail(f"B=4 step: loss {float(loss_b)}, launches {blend_launches()}")
+    log("slice", f"compute_losses_multi B=4 step: loss {float(loss_b):.5f}, launches {blend_launches()}")
 
     # 6 kernel times at full width (camera 0, the fused 4-channel blend)
     def timed(x):
@@ -1364,7 +1378,7 @@ def strips_phase(torch, bc, scene):
     g_full = bc.blend_bwd_cuda(*inputs, 4, raw_full, ct, split_full)
     torch.cuda.synchronize()
     scale = g_full.abs().amax(dim=1).clamp_min(1e-30)
-    bc.reset_launch_counts()
+    reset_launches()
     strips = {}
     for d in STRIP_SPLITS:
         raws, grads, calls = [], torch.zeros_like(g_full), []
@@ -1390,7 +1404,7 @@ def strips_phase(torch, bc, scene):
         if not grad_rel <= STRIP_GRAD_RTOL:
             fail(f"{d} strips: gradients differ from the full-grid launch by {grad_rel:.3e} of the inf-norm")
     torch.cuda.synchronize()
-    launches = dict(bc.LAUNCHES)
+    launches = blend_launches()
     expected = {"blend_fwd": sum(STRIP_SPLITS), "blend_bwd": sum(STRIP_SPLITS)}
 
     fwd_ms = cuda_ms(lambda: bc.blend_fwd_cuda(*inputs, 4), iters=20)
@@ -1469,7 +1483,7 @@ def dist_rank(rank, world, init, out, mode):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    bc.reset_launch_counts()
+    reset_launches()
     collectives.reset_counters()
     t0 = time.perf_counter()
     loss_sgd, aux = make(sgd_captured)(sh_deg)(p, None, cams, 1)
@@ -1497,7 +1511,7 @@ def dist_rank(rank, world, init, out, mode):
         losses.append(float(loss))
     step_coll_s = {k: v / DIST_TIMED_STEPS for k, v in collectives.SECONDS.items()}
     collectives.reset_counters()
-    launches = dict(bc.LAUNCHES)
+    launches = blend_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     # The single-process step on the same cameras, in this process.
@@ -1592,7 +1606,7 @@ def tools_phase(torch, bc, scene, refine_median_ms):
     T = np.eye(4)
     T[:3, :3] = np.eye(3) + np.sin(TOOLS_T_ANGLE) * kx + (1 - np.cos(TOOLS_T_ANGLE)) * kx @ kx
     T[:3, 3] = TOOLS_T_SHIFT
-    bc.reset_launch_counts()
+    reset_launches()
     moved = reg.transform_model(params, config, T)
     src = params.points.detach().double().cpu().numpy()
     dst = moved.points.detach().double().cpu().numpy()
@@ -1656,7 +1670,7 @@ def tools_phase(torch, bc, scene, refine_median_ms):
         blend = sorted({m.group(0) for m in (re.search(r"blend_\w+", x) for x in names) if m})
         trace_kb = os.path.getsize(os.path.join(tdir, "trace.json")) / 1024
     torch.cuda.synchronize()
-    launches = dict(bc.LAUNCHES)
+    launches = blend_launches()
     steps = 1 + 2 * TOOLS_BENCH_ITERS + 1
     expected = {"blend_fwd": 2 + steps, "blend_bwd": steps}
     log("tools", f"profiling.loop_bench: refine step {bench_ms:.2f} ms per iteration ({TOOLS_BENCH_ITERS} "
@@ -1681,7 +1695,7 @@ def refscale_phase(torch, bc):
     total = {"blend_fwd": 0, "blend_bwd": 0}
 
     def counted(label, expected):
-        got = dict(bc.LAUNCHES)
+        got = blend_launches()
         log("refscale", f"{label}: launches {got}, expected {expected}")
         if got != expected:
             fail(f"refscale {label} launched the kernels {got}, expected {expected}")
@@ -1699,7 +1713,7 @@ def refscale_phase(torch, bc):
     data = scenes.reference_rig(data, REFSCALE_FRAME_CAMS)
     torch.cuda.synchronize()
     log("refscale", f"frame: scene and {REFSCALE_FRAME_CAMS}-camera rig built in {time.perf_counter() - t0:.1f} s")
-    bc.reset_launch_counts()
+    reset_launches()
     res = frame.run(params, config, data, rcfg, REFSCALE_FRAME_ITERS, log=lambda m: log("refscale", f"frame: {m}"))
     rep = res["report"]
     finite("frame refine", rep["refine"]["segments"])
@@ -1719,7 +1733,7 @@ def refscale_phase(torch, bc):
 
     # The sequence.
     with tempfile.TemporaryDirectory(prefix="chip_smoke_refseq_") as root:
-        bc.reset_launch_counts()
+        reset_launches()
         rep = seq.run(root, REFSCALE_SEQ_ITERS, REFSCALE_SEQ_CAMS, log=lambda m: log("refscale", f"seq: {m}"))
     log("refscale", "seq: " + json.dumps({k: v for k, v in rep.items() if k != "stages"}))
     for d in rep["pair_demand"]:
@@ -1739,7 +1753,7 @@ def refscale_phase(torch, bc):
     # The real capture: GT renders, refine, detection on the full rig, fusion.
     t0 = time.perf_counter()
     rng = np.random.default_rng(7)
-    bc.reset_launch_counts()
+    reset_launches()
     cap = real.capture(REFSCALE_REAL_CAMS, rng, torch.device("cuda"))
     params, config, topo, hist = real.refine_body(cap, REFSCALE_REAL_ITERS, torch.device("cuda"))
     if len(hist) != REFSCALE_REAL_ITERS // 50 or not all(np.isfinite(h["loss"]) for h in hist):
@@ -1759,7 +1773,7 @@ def refscale_phase(torch, bc):
     torch.cuda.empty_cache()
 
     # The 160-camera warp.
-    bc.reset_launch_counts()
+    reset_launches()
     rep, _ = warp160.run(REFSCALE_WARP_CAMS, log=lambda m: None)
     log("refscale", "warp160: " + json.dumps(rep))
     if not rep["motion_err_mean_mm"] < REFSCALE_MAX_WARP_ERR_MM:
@@ -1774,9 +1788,9 @@ def demo_phase(torch, bc):
     from gaustar_tpu_torch import demo
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_demo_") as root:
-        bc.reset_launch_counts()
+        reset_launches()
         rep = demo.run(root, DEMO_ITERS, device="cuda", log=lambda m: log("demo", m))
-        launches = dict(bc.LAUNCHES)
+        launches = blend_launches()
     log("demo", json.dumps({k: v for k, v in rep.items() if k not in ("stages", "detection_and_unbind")}))
     for d in rep["pair_demand"]:
         log("demo", f"detection at iteration {d['iteration']}: pair demand normal {d['detect_max_pairs']}, solid "
@@ -1821,9 +1835,9 @@ def bench_phase(torch, bc):
     steps = bench.WARMUP + bench.STEPS
     total = {"blend_fwd": 0, "blend_bwd": 0}
     for batch in BENCH_BATCHES:
-        bc.reset_launch_counts()
+        reset_launches()
         rec = bench.run(*scene, batch)
-        launches = dict(bc.LAUNCHES)
+        launches = blend_launches()
         log("bench", json.dumps(bench.result(scene[2], batch, rec["step_s"], n_gauss, kind)))
         log("bench", f"B={batch}: step {1e3 * rec['step_s']:.3f} ms ({bench.STEPS} steps after {bench.WARMUP}, "
                      f"those {rec['warmup_s']:.2f} s); peak {rec['peak_bytes'] / 2**30:.3f} GiB; largest num_pairs "

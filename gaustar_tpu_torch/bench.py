@@ -27,10 +27,11 @@ ms and setup s, the gaussian count, the largest num_pairs over a step's
 cameras and the peak of torch.cuda.max_memory_allocated. `--detail PATH`
 times the stages of bench_detail (bench.py:251-310) on camera 0, each a
 utils/profiling.loop_bench of DETAIL_ITERS calls: preprocess + binning +
-the pair gather, the render forward, the render forward + backward, and
-the blend-forward estimate (the render forward less the first); it writes
-them to PATH as JSON and echoes them to stderr. `--width`, `--height`,
-`--lat` and `--lon` shrink the scene (the CPU tests).
+the pair gather, the render forward and the render forward + backward; it
+writes them to PATH as JSON and echoes them to stderr (the blend kernels'
+own device time is the benchmark's `raster_fwd_device_ms` and blend
+rooflines). `--width`, `--height`, `--lat` and `--lon` shrink the scene
+(the CPU tests).
 
 What bench.py has that this module does not, and why:
   - the persistent jit cache (:35-48): nothing here is traced or compiled
@@ -142,7 +143,7 @@ def result(data, batch: int, step_s: float, n_gauss: int, device_name: str) -> d
 def detail(params, config, data, raster_cfg, full_step_s: float, iters: int = DETAIL_ITERS) -> dict:
     """Seconds of the render's stages on camera 0 (bench_detail): preprocess
     + binning + the pair gather, the render forward, the render forward +
-    backward, and the blend-forward estimate."""
+    backward."""
     dev = params.points.device
     camera = index_camera(data.cameras, 0)
     grid_x, grid_y = (camera.width + TILE - 1) // TILE, (camera.height + TILE - 1) // TILE
@@ -173,7 +174,6 @@ def detail(params, config, data, raster_cfg, full_step_s: float, iters: int = DE
         "preprocess_binning_s": t_pb,
         "render_fwd_s": t_fwd,
         "render_fwdbwd_s": t_fb,
-        "blend_fwd_est_s": t_fwd - t_pb,
         "note": "camera 0, RGB; the full step is B renders fwd+bwd + SSIM + mesh losses + Adam",
     }
 

@@ -66,11 +66,11 @@ def rank_main(rank: int, world: int, init: str, out: str, device: str, small: bo
     out/rank<r>.pt."""
     import torch.distributed as dist
 
-    from gaustar_tpu_torch.ops import blend_cuda
     from gaustar_tpu_torch.parallel import launch, sharding
     from gaustar_tpu_torch.refscale.common import sync
     from gaustar_tpu_torch.train.optimizer import OptimizationParams, adam, adam_init, make_lr_fn
     from gaustar_tpu_torch.train.refine import RefineConfig
+    from gaustar_tpu_torch.utils import profiling
 
     dev = launch.rank_device(device, rank)
     if dev.type == "cpu":
@@ -83,7 +83,7 @@ def rank_main(rank: int, world: int, init: str, out: str, device: str, small: bo
     step = sharding.make_sharded_train_step(config, data, cfg, raster_cfg,
                                             adam(make_lr_fn(OptimizationParams(), 1.0)), mesh)(sh_deg=0)
     cams = list(range(cams_per_rank))
-    blend_cuda.reset_launch_counts()
+    profiling.reset_counts()
     step(params, opt_state, cams, 1)
     sync(dev)
     t0 = time.perf_counter()
@@ -92,7 +92,8 @@ def rank_main(rank: int, world: int, init: str, out: str, device: str, small: bo
     sync(dev)
     step_s = (time.perf_counter() - t0) / STEPS
     backend = dist.get_backend() if dist.is_initialized() else None
-    torch.save({"step_s": step_s, "loss": float(loss), "launches": dict(blend_cuda.LAUNCHES), "backend": backend},
+    launches = profiling.counts("blend_fwd", "blend_bwd")
+    torch.save({"step_s": step_s, "loss": float(loss), "launches": launches, "backend": backend},
                os.path.join(out, f"rank{rank}.pt"))
     if dist.is_initialized():
         dist.destroy_process_group()

@@ -28,6 +28,7 @@ from gaustar_tpu_torch.ops import sh as sh_ops
 from gaustar_tpu_torch.ops.knn import knn_points
 from gaustar_tpu_torch.ops.rasterizer import RasterConfig, rasterize
 from gaustar_tpu_torch.utils.general import inverse_sigmoid, matrix_to_quaternion, resolve_device
+from gaustar_tpu_torch.utils.profiling import span
 
 _SQRT3 = float(np.sqrt(3.0))
 
@@ -295,6 +296,7 @@ def covariance6(params: SuGaRParams, config: SuGaRConfig, use_solid_surface: boo
     return torch.stack([x.reshape(-1) for x in entries], dim=-1)
 
 
+@span("refine.geometry")
 def geom_primitives(params: SuGaRParams, config: SuGaRConfig, use_solid_surface: bool = False):
     """(positions [N, 3], cov6 [N, 6]) from ONE verts[faces] gather, so the
     backward runs one per-vertex reduction."""
@@ -396,10 +398,11 @@ def render_rgbd(
     if geom is None:
         geom = geom_primitives(params, config)
     positions = geom[0]
-    rgb = points_rgb(params, positions, camera.camera_center, sh_deg)
-    view = camera.view
-    z = positions @ view[2, :3] + view[2, 3]
-    colors4 = torch.cat([rgb, z[:, None]], dim=-1)
+    with span("render.colour"):
+        rgb = points_rgb(params, positions, camera.camera_center, sh_deg)
+        view = camera.view
+        z = positions @ view[2, :3] + view[2, 3]
+        colors4 = torch.cat([rgb, z[:, None]], dim=-1)
     bg4 = (*tuple(bg), max_depth)
     cfg4 = dataclasses.replace(raster_config, channels=4)
     img4, aux = render(

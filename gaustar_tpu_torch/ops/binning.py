@@ -8,10 +8,13 @@ by a stable sort on (is-culled, depth), each emits its pairs in rect row-major
 order, and a stable sort by tile keeps depth order inside every tile.
 
 Buffers are sized EXACTLY, as the CUDA reference sizes them: the pair count is
-read on the host once per render (one device sync), and the pair list is
-compact, `tile_start[t] .. tile_start[t] + tile_count[t]`. The JAX package's
-static capacities, overflow auto-retry and chunk-aligned padded segments are
-TPU choices that the port does not need.
+read on the host once per render, and the pair list is compact,
+`tile_start[t] .. tile_start[t] + tile_count[t]`. That read is one of the five
+host syncs of a render; the other four copy host-built constants to the card:
+`Camera.view`'s bottom row, read three times (twice in preprocess, once for
+the depth channel), and the background colour in ops/rasterizer.py. The JAX
+package's static capacities, overflow auto-retry and chunk-aligned padded
+segments are TPU choices that the port does not need.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from gaustar_tpu_torch.ops.projection import Gaussians2D
+from gaustar_tpu_torch.utils import profiling
 
 
 class BinnedPairs(NamedTuple):
@@ -49,7 +53,9 @@ def bin_gaussians(g: Gaussians2D, grid_x: int, grid_y: int) -> BinnedPairs:
     order_inv[order] = torch.arange(n, device=dev)
 
     touched = touched_all[order]
-    num_pairs = int(touched.sum())  # the one host sync of a render
+    num_pairs = int(touched.sum())  # a host sync: the pair buffers' size
+    profiling.count("pairs", num_pairs)
+    profiling.count("renders")
     gi, tile = expand_pairs(touched, g.rect_min[order], g.rect_max[order], grid_x, num_pairs)
 
     tile_sorted, pair_emit = torch.sort(tile, stable=True)
@@ -114,10 +120,11 @@ class _GatherRowsSoA(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
-        pair_emit, rank_pairs = ctx.saved_tensors
-        ct_emit = torch.empty((ct.shape[1], ct.shape[0]), dtype=ct.dtype, device=ct.device)
-        ct_emit[pair_emit] = ct.T
-        d_src = torch.segment_reduce(ct_emit, "sum", lengths=rank_pairs, axis=0, unsafe=True)
+        with profiling.span("render.gather_bwd"):
+            pair_emit, rank_pairs = ctx.saved_tensors
+            ct_emit = torch.empty((ct.shape[1], ct.shape[0]), dtype=ct.dtype, device=ct.device)
+            ct_emit[pair_emit] = ct.T
+            d_src = torch.segment_reduce(ct_emit, "sum", lengths=rank_pairs, axis=0, unsafe=True)
         return d_src, None, None, None
 
 

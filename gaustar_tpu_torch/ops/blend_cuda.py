@@ -53,20 +53,12 @@ import torch
 from gaustar_tpu_torch.ops import _build
 from gaustar_tpu_torch.ops.projection import TILE
 from gaustar_tpu_torch.ops.rasterizer_ref import clamp_alpha_ste
+from gaustar_tpu_torch.utils import profiling
 
 PIX = TILE * TILE
 STATE_ROWS = 8
 CHUNK = 32  # pair positions a plain blend evaluates in one batch
 CHUNK_ELEMS = 1 << 22
-
-# Launches of each kernel, counted by its wrapper where it launches.
-LAUNCHES = {"blend_fwd": 0, "blend_bwd": 0}
-
-
-def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
 
 def state_row(ch: int) -> int:
     """Raw-state row of blend channel `ch` (channel 3 rides row 6)."""
@@ -356,7 +348,7 @@ def blend_fwd_split(pair_data, tile_start, tile_count, grid_x, width, height, ch
     err = lib.blend_fwd(*_common_args(pair_data, tile_start, tile_count, plan, grid_x, tile_base), width, height,
                         channels, bits.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "blend_fwd")
-    LAUNCHES["blend_fwd"] += 1
+    profiling.count("blend_fwd")
     return out, (plan, bits)
 
 
@@ -382,7 +374,7 @@ def blend_bwd_cuda(pair_data, tile_start, tile_count, grid_x, width, height, cha
                         fwd.data_ptr(), dout.data_ptr(), bits.data_ptr(), states.data_ptr(),
                         grads.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "blend_bwd")
-    LAUNCHES["blend_bwd"] += 1
+    profiling.count("blend_bwd")
     return grads
 
 
@@ -395,10 +387,11 @@ class BlendRaw(torch.autograd.Function):
     def forward(ctx, pair_data, tile_start, tile_count, grid_x, width, height, channels, tile_base):
         ctx.split = None
         args = (pair_data, tile_start, tile_count, grid_x, width, height, channels)
-        if pair_data.is_cuda:
-            raw, ctx.split = blend_fwd_split(*args, tile_base)
-        else:
-            raw = blend_fwd_plain(*args, tile_base)
+        with profiling.span("render.blend_fwd"):
+            if pair_data.is_cuda:
+                raw, ctx.split = blend_fwd_split(*args, tile_base)
+            else:
+                raw = blend_fwd_plain(*args, tile_base)
         ctx.save_for_backward(pair_data, tile_start, tile_count, raw)
         ctx.meta = (grid_x, width, height, channels)
         ctx.tile_base = tile_base
@@ -407,11 +400,12 @@ class BlendRaw(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         pair_data, tile_start, tile_count, raw = ctx.saved_tensors
-        args = (pair_data, tile_start, tile_count, *ctx.meta, raw, ct.contiguous())
-        if pair_data.is_cuda:
-            grads = blend_bwd_cuda(*args, split=ctx.split, tile_base=ctx.tile_base)
-        else:
-            grads = blend_bwd_plain(*args, tile_base=ctx.tile_base)
+        with profiling.span("render.blend_bwd"):
+            args = (pair_data, tile_start, tile_count, *ctx.meta, raw, ct.contiguous())
+            if pair_data.is_cuda:
+                grads = blend_bwd_cuda(*args, split=ctx.split, tile_base=ctx.tile_base)
+            else:
+                grads = blend_bwd_plain(*args, tile_base=ctx.tile_base)
         return grads, None, None, None, None, None, None, None
 
 

@@ -22,6 +22,7 @@ from gaustar_tpu_torch.ops import binning
 from gaustar_tpu_torch.ops.blend_cuda import blend_raw
 from gaustar_tpu_torch.ops.projection import TILE, preprocess
 from gaustar_tpu_torch.ops.rasterizer_ref import rasterize_dense
+from gaustar_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +47,7 @@ def assemble_image_cm(tiles_cm: torch.Tensor, grid_x: int, grid_y: int, width: i
     return img[:, :height, :width]
 
 
+@span("render.rasterize")
 def rasterize(
     means3d,
     cov3d,
@@ -63,7 +65,8 @@ def rasterize(
     `means2d_dummy` (zeros [N, 2]) receives dL/d(NDC mean2d), the
     reference's screenspace_points trick (sugar_model.py:1266-1276)."""
     W, H = camera.width, camera.height
-    g = preprocess(means3d, cov3d, opacities, colors, camera)
+    with span("render.preprocess"):
+        g = preprocess(means3d, cov3d, opacities, colors, camera)
     if means2d_dummy is not None:
         scale = torch.tensor([0.5 * W, 0.5 * H], dtype=torch.float32, device=means3d.device)
         g = g._replace(mean2d=g.mean2d + means2d_dummy * scale)
@@ -81,8 +84,10 @@ def rasterize(
 
     grid_x = (W + TILE - 1) // TILE
     grid_y = (H + TILE - 1) // TILE
-    binned = binning.bin_gaussians(g, grid_x, grid_y)
-    pair_data = binning.gather_pair_data(g, binned)
+    with span("render.binning"):
+        binned = binning.bin_gaussians(g, grid_x, grid_y)
+    with span("render.gather"):
+        pair_data = binning.gather_pair_data(g, binned)
     raw = blend_raw(pair_data, binned.tile_start, binned.tile_count, grid_x, W, H, config.channels)
     maps = assemble_image_cm(raw, grid_x, grid_y, W, H)  # [8, H, W]
     if config.channels == 3:

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from gaustar_tpu_torch.utils.general import get_expon_lr_func
+from gaustar_tpu_torch.utils.profiling import span
 
 B1 = 0.9
 B2 = 0.999
@@ -125,6 +126,7 @@ def adam_init(params) -> AdamState:
 
 
 @torch.no_grad()
+@span("refine.adam")
 def adam_step(params, grads: dict, state: AdamState, lr_fn) -> None:
     """One step of every named group, as optax.adam(lr, 0.9, 0.999, eps=1e-15):
     mu_hat / (sqrt(nu_hat) + eps), bias-corrected with the incremented count

@@ -40,6 +40,7 @@ from gaustar_tpu_torch.ops import losses
 from gaustar_tpu_torch.ops.rasterizer import RasterConfig
 from gaustar_tpu_torch.ops.segment import gather_tables
 from gaustar_tpu_torch.train.optimizer import OptimizationParams, adam_init, adam_step, make_lr_fn
+from gaustar_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +153,7 @@ def masked_rgb_loss_cm(pred_cm, gt_cm, mask, dssim_factor=0.2):
     return (1.0 - dssim_factor) * l1 + dssim_factor * (1.0 - ssim_v)
 
 
+@span("loss.pixel")
 def pixel_losses(data: FrameData, cam_idx: int, iteration: int, cfg: RefineConfig, img_cm, pred_depth):
     """The camera-dependent terms (rgb + depth + mask) of a channels-major
     render."""
@@ -187,6 +189,7 @@ def _abs(x):
     return torch.where(x >= 0, x, -x)
 
 
+@span("loss.mesh")
 def shared_losses(params, model_config, data: FrameData, iteration: int, cfg: RefineConfig,
                   unbind_weight=None, pre_sh_dc=None):
     """The camera-independent terms: sh_reg, mesh losses, unbind, opacity."""
@@ -295,6 +298,7 @@ def compute_losses_multi(params, model_config, data: FrameData, cam_idxs, iterat
     return total * inv, b_dict
 
 
+@span("refine.backward")
 def named_grads(loss, params) -> dict:
     """{group: gradient of loss} for every named group (zeros where unused)."""
     named = params.named()
@@ -315,19 +319,21 @@ def train_step(params, opt_state, lr_fn, model_config, data: FrameData, cam_idx,
                unbind_weight=None, pre_sh_dc=None):
     """One refine step (the body of the JAX make_train_step): loss, gradients
     of every parameter group, named-group Adam in place. `cam_idx` is an int
-    or a sequence of ints (a camera batch). Returns (loss, loss_dict)."""
-    if isinstance(cam_idx, (list, tuple)):
-        loss, loss_dict = compute_losses_multi(
-            params, model_config, data, cam_idx, iteration, cfg, raster_cfg, sh_deg,
-            unbind_weight, pre_sh_dc,
-        )
-    else:
-        loss, loss_dict = compute_losses(
-            params, model_config, data, cam_idx, iteration, cfg, raster_cfg, sh_deg,
-            unbind_weight, pre_sh_dc,
-        )
-    adam_step(params, named_grads(loss, params), opt_state, lr_fn)
-    return loss.detach(), {k: (v.detach() if torch.is_tensor(v) else v) for k, v in loss_dict.items()}
+    or a sequence of ints (a camera batch). Returns (loss, loss_dict). The
+    span `refine.step` carries the iteration to every span inside it."""
+    with span("refine.step", step=iteration):
+        if isinstance(cam_idx, (list, tuple)):
+            loss, loss_dict = compute_losses_multi(
+                params, model_config, data, cam_idx, iteration, cfg, raster_cfg, sh_deg,
+                unbind_weight, pre_sh_dc,
+            )
+        else:
+            loss, loss_dict = compute_losses(
+                params, model_config, data, cam_idx, iteration, cfg, raster_cfg, sh_deg,
+                unbind_weight, pre_sh_dc,
+            )
+        adam_step(params, named_grads(loss, params), opt_state, lr_fn)
+        return loss.detach(), {k: (v.detach() if torch.is_tensor(v) else v) for k, v in loss_dict.items()}
 
 
 def refine_frame(

@@ -151,9 +151,8 @@ def test_main_prints_the_result_line(batch, tmp_path, capsys):
     assert line["value"] == pytest.approx(64 * 48 * batch / step_s / 1e6, rel=1e-9)
     assert "n_gauss=1152" in printed.err and "largest num_pairs" in printed.err
     stages = json.loads(path.read_text())
-    for k in ("preprocess_binning_s", "render_fwd_s", "render_fwdbwd_s", "blend_fwd_est_s"):
+    for k in ("preprocess_binning_s", "render_fwd_s", "render_fwdbwd_s"):
         assert np.isfinite(stages[k]), k
-    assert stages["blend_fwd_est_s"] == pytest.approx(stages["render_fwd_s"] - stages["preprocess_binning_s"])
 
 
 @pytest.mark.parametrize("module", [bench, bench_scaling], ids=["bench", "bench_scaling"])

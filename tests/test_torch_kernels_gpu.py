@@ -21,10 +21,12 @@ from gaustar_tpu_torch.ops import blend_cuda as bc
 from gaustar_tpu_torch.ops.projection import TILE, preprocess, quat_scale_to_cov3d
 from gaustar_tpu_torch.ops.rasterizer import rasterize
 from gaustar_tpu_torch.train import refine
+from gaustar_tpu_torch.utils import profiling
 from gaustar_tpu_torch.utils.synthetic import synthetic_frame
 
 pytestmark = pytest.mark.gpu
 
+BLEND = ("blend_fwd", "blend_bwd")  # the launch counters of the blend kernels
 GOLDEN = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "golden", "*.npz")))
 
 
@@ -190,9 +192,9 @@ def test_strips_with_tile_base_concatenate_to_full_grid(cuda, channels, d):
 def test_blend_raw_launches_each_kernel_once(cuda):
     pd, start, count, gx, w, h = _blend_inputs(cuda, 4)
     pd = pd.clone().requires_grad_()
-    bc.reset_launch_counts()
+    profiling.reset_counts()
     bc.blend_raw(pd, start, count, gx, w, h, 4)[:, 0].sum().backward()
-    assert bc.LAUNCHES == {"blend_fwd": 1, "blend_bwd": 1}
+    assert profiling.counts(*BLEND) == {"blend_fwd": 1, "blend_bwd": 1}
     assert torch.isfinite(pd.grad).all()
 
 
@@ -245,7 +247,6 @@ def _topo_inputs(dev):
 
 
 def test_detect_topo_err_on_card_matches_cpu(cuda):
-    from gaustar_tpu_torch.ops import blend_cuda
     from gaustar_tpu_torch.train import topo_detect
 
     cfg = topo_detect.TopoDetectConfig(min_observe=2, mesh_prop=5, detect_floor=False, depth_agreement=0.1,
@@ -253,10 +254,10 @@ def test_detect_topo_err_on_card_matches_cpu(cuda):
     out = {}
     for dev in (cuda, torch.device("cpu")):
         target, config, data, gt, topo, rc = _topo_inputs(dev)
-        blend_cuda.reset_launch_counts()
+        profiling.reset_counts()
         out[dev.type] = topo_detect.detect_topo_err(target, config, data.cameras, gt, topo, rc, cfg)
         if dev.type == "cuda":
-            assert blend_cuda.LAUNCHES == {"blend_fwd": 2 * 6, "blend_bwd": 0}  # two renders per camera
+            assert profiling.counts(*BLEND) == {"blend_fwd": 2 * 6, "blend_bwd": 0}  # two renders per camera
     w_g, w_c = out["cuda"], out["cpu"]
     # the CPU test's tolerances (tests/test_torch_topo_detect.py)
     assert (np.abs(w_g - w_c) <= 1e-4).mean() >= 0.995
@@ -422,9 +423,9 @@ def test_train_gaussians_on_card_matches_cpu(cuda):
         _, _, data, _, _ = synthetic_frame(device=dev)
         p = gaussians.create_from_pcd(pts, cols, device=dev)
         events = []
-        bc.reset_launch_counts()
+        profiling.reset_counts()
         params, _ = tg.train_gaussians(p, data.cameras, data.gt_images, cfg, log_fn=events.append)
-        out[dev] = (params, events, dict(bc.LAUNCHES))
+        out[dev] = (params, events, profiling.counts(*BLEND))
     (pc, ec, _), (pg, eg, launches) = out["cpu"], out["cuda"]
     assert eg == ec and [e["iteration"] for e in eg] == [9]
     assert launches == {"blend_fwd": 10, "blend_bwd": 10}
@@ -463,10 +464,10 @@ def test_grad_step_on_card_matches_cpu(cuda, sh_deg):
     for dev in ("cpu", "cuda"):
         _, _, data, _, _ = synthetic_frame(device=dev)
         p = tg._leaves(bridge.gaussian_params_from_numpy(fields, dev))
-        bc.reset_launch_counts()
+        profiling.reset_counts()
         runs[dev] = [tg._grad_step(p, index_camera(data.cameras, c), data.gt_images[c], sh_deg, cfg,
                                    tg.RasterConfig()) for c in range(data.gt_images.shape[0])]
-        launches = dict(bc.LAUNCHES)
+        launches = profiling.counts(*BLEND)
     assert launches == {"blend_fwd": len(runs["cuda"]), "blend_bwd": len(runs["cuda"])}
     for c, ((lc, gc, dc, rc), (lg, gg, dg, rg)) in enumerate(zip(runs["cpu"], runs["cuda"])):
         np.testing.assert_allclose(float(lg), float(lc), rtol=2e-6)
