@@ -24,7 +24,8 @@ Phases, one line of output each (or a few):
              frame on the CPU (plain versions), then refine_frame at full
              width (600k gaussians, 1600x1024, 4 cameras) for ITERS
              iterations, with finite losses and one launch of each kernel
-             per iteration, then one 4-camera batch step;
+             (both blends, the pixel-loss forward and backward) per
+             iteration, then one 4-camera batch step with four of each;
   6 kernels  each kernel's time (CUDA events) at full width, at the initial
              opacities and at 0.9 and on the longest tile alone, the CUDA
              kernels it launches and its scratch bytes, its plain version's
@@ -201,7 +202,24 @@ Phases, one line of output each (or a few):
              from the initial parameters), the scaling run reports the card
              count, no size beyond it, one launch of each kernel per rank,
              camera and step, and no efficiency on one card.
-The kernels line adds launches_strips, launches_dist (summed over the ranks
+ 17 pixel    the pixel-loss kernels (csrc/pixel_loss.cu) against their plain
+             versions in float64 at 1600x1024, at the benchmark's margins (1
+             pixel a side), an uneven margin and none: the four means within
+             PIXEL_MEANS_RTOL, both gradients within PIXEL_GRAD_ATOL of each
+             field's inf-norm (the plain versions' own gaps in float32
+             printed beside), the kernels bit-equal run to run; then each
+             kernel's device-busy time (profiler) and its time between CUDA
+             events, beside its bound (the bytes the function reads and
+             writes, or its operations) and the bound with the saved
+             partials' traffic, the plain versions' and the former
+             shift-and-add path's (autograd through ssim_map_cm, as
+             refine.pixel_losses ran before the kernels), the kernels each
+             path launches for a render's forward and backward, and the
+             counters from 0 (one launch of each kernel a render). It prints
+             the `pixel` JSON line.
+The kernels line gains the pixel-loss kernels' entries (launches from phase
+5, times and bounds from phase 17). For the blends it adds
+launches_strips, launches_dist (summed over the ranks
 of both steps), launches_tools, launches_refscale, launches_demo and
 launches_bench (both bench runs and the scaling ranks), and each kernel's
 max |error| on the strip against its plain version.
@@ -374,6 +392,16 @@ DEMO_LOOSE_BIND = [True, True]
 # The bench (phase 16, gaustar_tpu_torch/bench.py and bench_scaling.py): the
 # camera batches it runs, in order.
 BENCH_BATCHES = (4, 1)
+# The pixel losses (phase 17): the margins compared (None: no margin), the
+# tolerances of the kernels against the plain versions in float64 (the
+# means' relative gap; the gradients' largest gap over the field's inf-norm),
+# the timed calls.
+PIXEL_MARGINS = ((1, 1, 1, 1), (37, 1, 1, 21), None)
+PIXEL_MEANS_RTOL = 2e-6
+PIXEL_GRAD_ATOL = 1e-4
+PIXEL_ITERS = 20
+# The counters of the kernels every refine step launches once a render.
+STEP_COUNTERS = ("blend_fwd", "blend_bwd", "pixel_loss_fwd", "pixel_loss_bwd")
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -401,6 +429,14 @@ def blend_launches() -> dict:
     from gaustar_tpu_torch.utils import profiling
 
     return profiling.counts("blend_fwd", "blend_bwd")
+
+
+def step_launches() -> dict:
+    """The launches of the kernels every refine step runs (the blend and
+    the pixel losses) since the counters were last reset."""
+    from gaustar_tpu_torch.utils import profiling
+
+    return profiling.counts(*STEP_COUNTERS)
 
 
 def reset_launches():
@@ -1261,7 +1297,7 @@ def kernel_phases(torch, bc, t_start):
     out_params, _, history = refine.refine_frame(params, config, data, cfg, raster_cfg,
                                                  log_every=1, log_fn=on_log)
     torch.cuda.synchronize()
-    launches = blend_launches()
+    launches = step_launches()
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     steps_ms = [1e3 * (b - a) for a, b in zip(stamps[WARMUP_STEPS - 1:], stamps[WARMUP_STEPS:])]
@@ -1272,7 +1308,7 @@ def kernel_phases(torch, bc, t_start):
                  f"launches {launches}; wall {wall:.2f} s; median step {median_ms:.2f} ms "
                  f"(steps {WARMUP_STEPS + 1}-{ITERS}); peak mem {peak_gb:.2f} GiB; "
                  f"num_pairs {int(history[-1]['num_pairs'])}; loss {history[0]['loss']:.5f} -> {history[-1]['loss']:.5f}")
-    if len(history) != ITERS or launches != {"blend_fwd": ITERS, "blend_bwd": ITERS}:
+    if len(history) != ITERS or launches != dict.fromkeys(STEP_COUNTERS, ITERS):
         fail(f"main path launched the kernels {launches}, expected {ITERS} each")
     moved = float((out_params.points - params.points).detach().abs().max())
     if not moved > 0:
@@ -1284,9 +1320,9 @@ def kernel_phases(torch, bc, t_start):
     loss_b, ld_b = refine.train_step(out_params, opt_state, lr_fn, config, data, [0, 1, 2, 3], 1,
                                      cfg, raster_cfg, 2)
     torch.cuda.synchronize()
-    if not np.isfinite(float(loss_b)) or blend_launches() != {"blend_fwd": 4, "blend_bwd": 4}:
-        fail(f"B=4 step: loss {float(loss_b)}, launches {blend_launches()}")
-    log("slice", f"compute_losses_multi B=4 step: loss {float(loss_b):.5f}, launches {blend_launches()}")
+    if not np.isfinite(float(loss_b)) or step_launches() != dict.fromkeys(STEP_COUNTERS, 4):
+        fail(f"B=4 step: loss {float(loss_b)}, launches {step_launches()}")
+    log("slice", f"compute_losses_multi B=4 step: loss {float(loss_b):.5f}, launches {step_launches()}")
 
     # 6 kernel times at full width (camera 0, the fused 4-channel blend)
     def timed(x):
@@ -1341,7 +1377,7 @@ def kernel_phases(torch, bc, t_start):
                    f"slots loaded fwd {walk['fwd_slots']} bwd {walk['bwd_slots']}; "
                    f"bounds fwd {fwd_bound[0]:.4f} ms ({fwd_bound[1]}) bwd {bwd_bound[0]:.4f} ms ({bwd_bound[1]}); "
                    f"median step {median_ms:.2f} ms; total {time.perf_counter() - t_start:.1f} s")
-    return kernels, median_ms
+    return kernels, median_ms, launches
 
 
 def strip_inputs(torch, inputs, d, g):
@@ -1822,6 +1858,129 @@ def demo_phase(torch, bc):
     return launches
 
 
+def runtime_launches(torch, fn) -> int:
+    """Kernel launches (runtime calls) of one call of `fn`, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
+
+
+def pixel_phase(torch):
+    """Phase 17: the pixel-loss kernels against their plain versions, their
+    times, bounds and launches. Returns the `pixel` record."""
+    from benchmark.bounds import SSIM_OPS_PER_PIXEL
+    from gaustar_tpu_torch.ops import pixel_loss as pl
+    from gaustar_tpu_torch.utils import profiling
+    from gaustar_tpu_torch.utils.synthetic import REF_H, REF_W
+    from profile_step import wall_and_device_ms
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from pixel_loss_frames import former_means, frame
+
+    dev = torch.device("cuda")
+    h, w = REF_H, REF_W
+    render, gt, gt_depth = frame(dev, h, w)
+    img, depth = render[:3], render[3]
+    g = torch.tensor([0.8, -0.2, 0.1, 1.0], device=dev)
+    rec = {"size": [w, h], "errors": {}}
+    f32 = (img, depth, gt, gt_depth, g)
+    f64 = tuple(t.double() for t in f32)
+    kernels = (pl.pixel_loss_fwd_cuda, pl.pixel_loss_bwd_cuda)
+    plain = (pl.pixel_loss_fwd_plain, pl.pixel_loss_bwd_plain)
+    for margin in PIXEL_MARGINS:
+        mt = None if margin is None else torch.tensor(margin, dtype=torch.int64, device=dev)
+        runs = []  # the kernels twice, the plain versions in float32 and in float64
+        for (fwd, bwd), (i, d, gi, gd, gg) in ((kernels, f32), (kernels, f32), (plain, f32), (plain, f64)):
+            means, saved = fwd(i, d, gi, gd, mt, 10.0)
+            runs.append((means, *bwd(i, d, gi, gd, mt, 10.0, saved, gg)))
+        if not all(torch.equal(a, b) for a, b in zip(runs[0], runs[1])):
+            fail(f"pixel: the kernels differ run to run at margin {margin}")
+
+        def gaps(run, ref=runs[3]):
+            (m, di, dd), (mr, ir, dr) = run, ref
+            return {"means_rel": float(((m - mr).abs() / mr.abs().clamp_min(1e-30)).max()),
+                    "d_img": float((di - ir).abs().max() / ir.abs().max()),
+                    "d_depth": float((dd - dr).abs().max() / dr.abs().max())}
+
+        err, err_plain = gaps(runs[0]), gaps(runs[2])
+        rec["errors"][str(margin)] = {"kernels": err, "plain_float32": err_plain}
+        log("pixel", f"margin {margin}: means kernels {runs[0][0].tolist()}, plain in float64 {runs[3][0].tolist()}; "
+                     f"largest gaps to float64, kernels {err}, plain in float32 {err_plain} (means relative, "
+                     f"gradients of each field's inf-norm)")
+        if err["means_rel"] > PIXEL_MEANS_RTOL or max(err["d_img"], err["d_depth"]) > PIXEL_GRAD_ATOL:
+            fail(f"pixel: the kernels differ from the plain versions at margin {margin}: {err}")
+
+    mt = torch.tensor(PIXEL_MARGINS[0], dtype=torch.int64, device=dev)
+    means, saved = pl.pixel_loss_fwd_cuda(img, depth, gt, gt_depth, mt, 10.0)
+    leaf = render.detach().requires_grad_()
+    paths = {
+        "kernels": lambda: torch.autograd.grad(pl.pixel_loss_means(leaf[:3], leaf[3], gt, gt_depth, mt, 10.0), leaf, g),
+        "plain": lambda: pl.pixel_loss_bwd_plain(
+            img, depth, gt, gt_depth, mt, 10.0, pl.pixel_loss_fwd_plain(img, depth, gt, gt_depth, mt, 10.0)[1], g),
+        "shift_and_add": lambda: torch.autograd.grad(former_means(leaf[:3], leaf[3], gt, gt_depth, mt), leaf, g),
+    }
+    calls = {
+        "fwd_kernel": lambda: pl.pixel_loss_fwd_cuda(img, depth, gt, gt_depth, mt, 10.0),
+        "bwd_kernel": lambda: pl.pixel_loss_bwd_cuda(img, depth, gt, gt_depth, mt, 10.0, saved, g),
+        **{f"{k}_fwd_bwd": fn for k, fn in paths.items()},
+    }
+    def device_timed(name, fn):
+        """(ms between CUDA events, device-busy ms) a call: a kernel call's
+        wall is the host's (checks, allocations, ctypes) where it exceeds
+        the device's. A profiler window that lost every kernel event reads
+        0 device ms; it is measured again, at most twice more."""
+        for _ in range(3):
+            wall, busy = wall_and_device_ms(torch, fn, PIXEL_ITERS)
+            if busy > 0:
+                return wall, busy
+        fail(f"pixel: the profiler saw no device time in three windows of {name}")
+
+    timed = {k: device_timed(k, fn) for k, fn in calls.items()}
+    ms = {k: v[1] for k, v in timed.items()}
+    n = h * w
+    ops = SSIM_OPS_PER_PIXEL // 2 * n
+    # The function's own traffic: the forward reads img, depth, gt and gt
+    # depth (8 floats a pixel); the backward reads them and writes the 4
+    # gradients. The design adds the nine saved partials, written by the
+    # forward and read by the backward (design_ms).
+    bounds = {"fwd_kernel": bound(4 * 8 * n, ops), "bwd_kernel": bound(4 * (8 + 4) * n, ops)}
+    design = {"fwd_kernel": bound(4 * (8 + 9) * n, ops), "bwd_kernel": bound(4 * (8 + 9 + 4) * n, ops)}
+    profiling.reset_counts()
+    launches = {k: runtime_launches(torch, fn) for k, fn in paths.items()}
+    counted = profiling.counts("pixel_loss_fwd", "pixel_loss_bwd")
+    if counted != {"pixel_loss_fwd": 2, "pixel_loss_bwd": 2}:  # the kernels' path, called twice
+        fail(f"pixel: the counters read {counted} over two calls of the kernels' path")
+    rec.update(ms=ms, wall_ms={k: v[0] for k, v in timed.items()}, bound_ms={k: v[0] for k, v in bounds.items()},
+               bound_by={k: v[1] for k, v in bounds.items()}, design_ms={k: v[0] for k, v in design.items()},
+               launches_per_render=launches)
+    log("pixel", "device ms (wall ms) at %dx%d: " % (w, h)
+        + ", ".join(f"{k} {v[1]:.4f} ({v[0]:.4f})" for k, v in timed.items())
+        + "; bounds " + ", ".join(f"{k} {v[0]:.4f} ({v[1]})" for k, v in bounds.items())
+        + "; with the saved partials " + ", ".join(f"{k} {v[0]:.4f} ({v[1]})" for k, v in design.items())
+        + f"; kernel launches a render's forward and backward {launches}")
+    print(json.dumps({"pixel": rec}), flush=True)
+    return rec
+
+
+def pixel_kernels(rec, launches) -> list:
+    """The pixel-loss kernels' entries of the `kernels` record: launches from
+    the main-path run (phase 5), times and bounds from phase 17."""
+    out = []
+    for name, key, err in (("pixel_loss_fwd", "fwd_kernel", "means_rel"), ("pixel_loss_bwd", "bwd_kernel", "d_img")):
+        out.append({"name": name, "route": "cuda", "source": "gaustar_tpu_torch/csrc/pixel_loss.cu",
+                    "replaces": None, "launches": launches[name], "launches_per_step": launches[name] / ITERS,
+                    "max_abs_err": max(e["kernels"][err] for e in rec["errors"].values()),
+                    "ms": rec["ms"][key], "plain_ms": rec["ms"]["plain_fwd_bwd"], "bound_ms": rec["bound_ms"][key],
+                    "bound_by": rec["bound_by"][key], "design_bound_ms": rec["design_ms"][key],
+                    "library_ms": None, "shift_and_add_ms": rec["ms"]["shift_and_add_fwd_bwd"]})
+    return out
+
+
 def bench_phase(torch, bc):
     """Phase 16: the bench at each of BENCH_BATCHES on the reference scene,
     then the camera-DP scaling harness on the cards. Returns {kernel:
@@ -1894,13 +2053,13 @@ def main() -> int:
 
     # 2 build
     t0 = time.perf_counter()
-    build_log = _build.build(["blend_fwd", "blend_bwd", "jpeg_codec"])
+    build_log = _build.build([*_build.STEP_KERNELS, "jpeg_codec"])
     for name, entry in build_log.items():
         usage = [ln.strip() for ln in entry["log"].splitlines() if "registers" in ln or "smem" in ln]
         log("build", f"{name}: {entry['seconds']:.1f} s; " + " | ".join(usage))
     log("build", f"wall {time.perf_counter() - t0:.1f} s")
 
-    kernels, median_ms = kernel_phases(torch, bc, t_start)
+    kernels, median_ms, main_launches = kernel_phases(torch, bc, t_start)
     # 7 the topology event, then the native library on its fused mesh
     t0 = time.perf_counter()
     topo_launches, fwd_only_err, fused = topo_phase(torch, bc)
@@ -1954,6 +2113,10 @@ def main() -> int:
     t0 = time.perf_counter()
     bench_launches = bench_phase(torch, bc)
     log("bench", f"phase wall {time.perf_counter() - t0:.1f} s")
+    # 17 pixel: the pixel-loss kernels
+    t0 = time.perf_counter()
+    pixel = pixel_phase(torch)
+    log("pixel", f"phase wall {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         k["launches_topo"] = topo_launches[k["name"]]
         k["launches_seq"] = seq_launches[k["name"]]
@@ -1967,6 +2130,7 @@ def main() -> int:
         k["launches_bench"] = bench_launches[k["name"]]
         k["max_abs_err_strip"] = strip_errs[k["name"]]
     kernels[0]["max_abs_err_fwd_only"] = fwd_only_err
+    kernels += pixel_kernels(pixel, main_launches)
     log("done", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

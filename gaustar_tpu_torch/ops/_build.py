@@ -6,7 +6,9 @@ Each `csrc/<name>.cu` has a plain C interface and compiles with nvcc alone
 the source, the headers of `csrc/`, the flags and the library's own link
 flags (`LINK_FLAGS`: `jpeg_codec` links the toolkit's libnvjpeg, found at run
 time through an rpath to the toolkit's lib64), so an edited source, header or
-flag is rebuilt. `build()` starts one nvcc per source, all at once.
+flag is rebuilt. `build()` starts one nvcc per source, all at once; the
+first `load` of a source the refine step runs (STEP_KERNELS) builds every
+one of them that is missing in that one round.
 
 `-fmad=false`: the blend's discrete decisions (power <= 0, alpha >= 1/255,
 T * (1 - alpha) < 1e-4, and so `n_contrib`) flip on one ULP. Without FMA
@@ -30,6 +32,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# The sources every refine step launches: the blend and the pixel losses.
+STEP_KERNELS = ("blend_fwd", "blend_bwd", "pixel_loss")
 
 # Libraries a source links beyond the CUDA runtime, per source name.
 LINK_FLAGS = {"jpeg_codec": ("-lnvjpeg",)}
@@ -100,7 +105,7 @@ def load(name: str, argtypes: dict) -> ctypes.CDLL:
     if lib is None:
         path = lib_path(name)
         if not path.exists():
-            build([name])
+            build(STEP_KERNELS if name in STEP_KERNELS else [name])
         lib = ctypes.CDLL(str(path))
         for fn_name, types in argtypes.items():
             fn = getattr(lib, fn_name)

@@ -3,7 +3,9 @@
 SSIM: 11x11 Gaussian window, sigma 1.5, zero padding, C1 = 0.01^2,
 C2 = 0.03^2 (loss_utils.py:17-63), channels-major [C, H, W]. The separable
 window runs as shift-and-add in full float32: no conv2d, so no cuDNN and no
-TF32. Mesh regularizers: normal consistency and the edge/area isometry terms
+TF32; the refine step's masked SSIM and its other pixel terms run as one CUDA
+forward and one backward (ops/pixel_loss.py), with this SSIM as their plain
+version. Mesh regularizers: normal consistency and the edge/area isometry terms
 of refine.py:678-718, all from one verts[faces] gather.
 """
 
@@ -53,27 +55,36 @@ def _sep_filter_bhw(x: torch.Tensor, kcol, krow) -> torch.Tensor:
     return sum(krow[k] * xp[:, :, k : k + W] for k in range(w))
 
 
-def ssim_map_cm(img1_cm: torch.Tensor, img2_cm: torch.Tensor, window_size: int = 11) -> torch.Tensor:
-    """Per-pixel SSIM map of two [C, H, W] images -> [C, H, W]."""
+SSIM_C1 = 0.01**2
+SSIM_C2 = 0.03**2
+
+
+def ssim_moments_cm(img1_cm: torch.Tensor, img2_cm: torch.Tensor, window_size: int = 11):
+    """The window's moments of two [C, H, W] images x, y: (mu1, mu2, E[x^2],
+    E[y^2], E[xy]), each [C, H, W]."""
     kcol, krow = _ssim_factors(window_size)
-    c = img1_cm.shape[0]
     stack = torch.cat(
         [img1_cm, img2_cm, img1_cm * img1_cm, img2_cm * img2_cm, img1_cm * img2_cm], dim=0
     )
-    out = _sep_filter_bhw(stack, kcol, krow)
-    mu1, mu2 = out[0:c], out[c : 2 * c]
-    e11, e22, e12 = out[2 * c : 3 * c], out[3 * c : 4 * c], out[4 * c :]
+    return _sep_filter_bhw(stack, kcol, krow).split(img1_cm.shape[0])
+
+
+def ssim_from_moments(mu1, mu2, e11, e22, e12) -> torch.Tensor:
+    """The SSIM map from the window's moments (ssim_moments_cm)."""
     mu1_sq = mu1 * mu1
     mu2_sq = mu2 * mu2
     mu1_mu2 = mu1 * mu2
     sigma1_sq = e11 - mu1_sq
     sigma2_sq = e22 - mu2_sq
     sigma12 = e12 - mu1_mu2
-    c1 = 0.01**2
-    c2 = 0.03**2
-    return ((2.0 * mu1_mu2 + c1) * (2.0 * sigma12 + c2)) / (
-        (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2)
+    return ((2.0 * mu1_mu2 + SSIM_C1) * (2.0 * sigma12 + SSIM_C2)) / (
+        (mu1_sq + mu2_sq + SSIM_C1) * (sigma1_sq + sigma2_sq + SSIM_C2)
     )
+
+
+def ssim_map_cm(img1_cm: torch.Tensor, img2_cm: torch.Tensor, window_size: int = 11) -> torch.Tensor:
+    """Per-pixel SSIM map of two [C, H, W] images -> [C, H, W]."""
+    return ssim_from_moments(*ssim_moments_cm(img1_cm, img2_cm, window_size))
 
 
 def ssim_map(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch.Tensor:

@@ -33,7 +33,7 @@ def clocked(dev: torch.device, fn):
 def build_libraries(dev: torch.device) -> float:
     """Build what a frame's stages load at first use, so that no timed
     stage holds a compiler: the native mesh library (g++; fusion decimates
-    with it) and, on a card, the blend kernels (nvcc). Returns the wall
+    with it) and, on a card, the refine step's kernels (nvcc). Returns the wall
     seconds (about 0 when both are built already)."""
     from gaustar_tpu_torch import native
     from gaustar_tpu_torch.ops import _build
@@ -41,7 +41,7 @@ def build_libraries(dev: torch.device) -> float:
     t0 = time.perf_counter()
     native.build()
     if dev.type == "cuda":
-        _build.build(["blend_fwd", "blend_bwd"])
+        _build.build(_build.STEP_KERNELS)
     return time.perf_counter() - t0
 
 

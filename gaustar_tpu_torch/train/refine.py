@@ -36,7 +36,7 @@ import torch
 from gaustar_tpu_torch.cameras import Camera, index_camera
 from gaustar_tpu_torch.io import checkpoint as ckpt_io
 from gaustar_tpu_torch.models import sugar
-from gaustar_tpu_torch.ops import losses
+from gaustar_tpu_torch.ops import losses, pixel_loss
 from gaustar_tpu_torch.ops.rasterizer import RasterConfig
 from gaustar_tpu_torch.ops.segment import gather_tables
 from gaustar_tpu_torch.train.optimizer import OptimizationParams, adam_init, adam_step, make_lr_fn
@@ -131,49 +131,20 @@ def compute_margins(cx, cy, width, height) -> np.ndarray:
     return m
 
 
-def margin_mask(margin, height: int, width: int) -> torch.Tensor:
-    """[H, W] 0/1 mask excluding the crop margins (left, right, top, bottom)."""
-    xs = torch.arange(width, device=margin.device)
-    ys = torch.arange(height, device=margin.device)
-    mx = (xs >= margin[0]) & (xs < width - margin[1])
-    my = (ys >= margin[2]) & (ys < height - margin[3])
-    return (my[:, None] & mx[None, :]).to(torch.float32)
-
-
-def masked_mean(x, mask):
-    return (x * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
-
-
-def masked_rgb_loss_cm(pred_cm, gt_cm, mask, dssim_factor=0.2):
-    """0.8*L1 + 0.2*DSSIM over the masked region, channels-major [C, H, W]."""
-    m3 = mask[None]
-    l1 = masked_mean(torch.abs(pred_cm - gt_cm), m3.expand(pred_cm.shape))
-    smap = losses.ssim_map_cm(pred_cm * m3, gt_cm * m3)
-    ssim_v = masked_mean(smap, m3.expand(smap.shape))
-    return (1.0 - dssim_factor) * l1 + dssim_factor * (1.0 - ssim_v)
-
-
 @span("loss.pixel")
 def pixel_losses(data: FrameData, cam_idx: int, iteration: int, cfg: RefineConfig, img_cm, pred_depth):
     """The camera-dependent terms (rgb + depth + mask) of a channels-major
-    render."""
-    H, W = data.gt_images.shape[1], data.gt_images.shape[2]
-    loss_dict = {}
-    gt = data.gt_images[cam_idx].permute(2, 0, 1)
-    if cfg.use_margin:
-        mask = margin_mask(data.margins[cam_idx], H, W)
-        rgb = masked_rgb_loss_cm(img_cm, gt, mask, cfg.dssim_factor)
-    else:
-        f = cfg.dssim_factor
-        rgb = (1.0 - f) * losses.l1_loss(img_cm, gt) + f * (1.0 - losses.ssim_map_cm(img_cm, gt).mean())
+    render, from the four means of ops/pixel_loss (one CUDA forward and one
+    backward on the card)."""
+    margin = data.margins[cam_idx] if cfg.use_margin else None
+    l1, ssim_v, depth_l1, mask_l1 = pixel_loss.pixel_loss_means(
+        img_cm, pred_depth, data.gt_images[cam_idx], data.gt_depths[cam_idx], margin, cfg.max_depth).unbind()
+    f = cfg.dssim_factor
+    rgb = (1.0 - f) * l1 + f * (1.0 - ssim_v)
     loss = rgb
-    loss_dict["rgb_loss"] = rgb
-
-    gt_depth = data.gt_depths[cam_idx]
-    fg = (gt_depth < cfg.max_depth).to(torch.float32)
-    bg = (gt_depth > cfg.max_depth).to(torch.float32)
-    depth_loss = cfg.depth_loss_factor * masked_mean(torch.abs(pred_depth - gt_depth), fg)
-    mask_loss = cfg.mask_loss_factor * masked_mean(torch.abs(pred_depth - cfg.max_depth), bg)
+    loss_dict = {"rgb_loss": rgb}
+    depth_loss = cfg.depth_loss_factor * depth_l1
+    mask_loss = cfg.mask_loss_factor * mask_l1
     if iteration > cfg.depth_loss_from:
         loss = loss + depth_loss
     if iteration > cfg.mask_loss_from:

@@ -74,4 +74,4 @@ def test_build_libraries_builds_native_on_the_cpu(monkeypatch):
     common.build_libraries(torch.device("cpu"))
     assert built == ["native"]
     common.build_libraries(torch.device("cuda", 0))
-    assert built == ["native", "native", ("blend_fwd", "blend_bwd")]
+    assert built == ["native", "native", ("blend_fwd", "blend_bwd", "pixel_loss")]  # the refine step's kernels

@@ -26,7 +26,7 @@ from gaustar_tpu_torch.utils.synthetic import synthetic_frame
 
 LAYER_SPANS = {"refine.step", "refine.geometry", "render.colour", "render.rasterize", "render.preprocess",
                "render.binning", "render.gather", "render.blend_fwd", "loss.pixel", "loss.mesh",
-               "refine.backward", "render.blend_bwd", "render.gather_bwd", "refine.adam"}
+               "refine.backward", "render.blend_bwd", "render.gather_bwd", "loss.pixel_bwd", "refine.adam"}
 RASTER_CHILDREN = {"render.preprocess", "render.binning", "render.gather", "render.blend_fwd"}
 
 
@@ -111,7 +111,7 @@ def test_refine_step_records_each_layer(batch):
     assert set(names) == LAYER_SPANS
     assert names.count("refine.step") == 1 and names.count("refine.geometry") == 1  # shared by the batch
     for name in ("render.rasterize", "render.colour", "loss.pixel", "render.blend_fwd", "render.blend_bwd",
-                 "render.gather_bwd"):
+                 "render.gather_bwd", "loss.pixel_bwd"):
         assert names.count(name) == batch, name
     assert names.count("loss.mesh") == batch  # once a camera's loss stack
     assert all(s.step == 5 for s in rec.spans)
@@ -119,7 +119,7 @@ def test_refine_step_records_each_layer(batch):
         parent = rec.spans[s.parent].name if s.parent != -1 else None
         if s.name in RASTER_CHILDREN:
             assert parent == "render.rasterize", s
-        if s.name in ("render.blend_bwd", "render.gather_bwd"):
+        if s.name in ("render.blend_bwd", "render.gather_bwd", "loss.pixel_bwd"):
             # the CPU's autograd engine runs the backward on the calling thread
             assert parent == "refine.backward" and s.thread == rec.main_thread
     assert rec.counts["renders"] == batch
