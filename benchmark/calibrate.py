@@ -34,9 +34,7 @@ class ReferenceAsProgram:
     """The reference put in the program's place (the control)."""
 
     def __init__(self, inputs, config, device, tf32=True):
-        from benchmark.reference.refine_step import Reference
-
-        self.ref = Reference(inputs, config["sh_degree"], config["lr_scale"], tf32=tf32)
+        self.ref = harness.reference_module(config).Reference(inputs, config, tf32=tf32)
 
     def step(self, cams, iteration):
         return self.ref.step(cams)[0]
@@ -53,9 +51,8 @@ class ReferenceAsProgram:
 
 def half_batch(inputs, config, device):
     """The program, each step over the first half of its cameras."""
-    from benchmark.program import Program
 
-    class HalfBatch(Program):
+    class HalfBatch(harness.program_module(config).Program):
         def step(self, cams, iteration):
             return super().step(cams[:max(1, len(cams) // 2)], iteration)
 
@@ -101,9 +98,7 @@ def readings(workload: str, seed: int, make_program, config=None, device="cuda")
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
-    from benchmark.reference.refine_step import Reference
-
-    ref = check.reference_readings(Reference(inputs, config["sh_degree"], config["lr_scale"]), cams)
+    ref = check.reference_readings(harness.reference_module(config).Reference(inputs, config), cams)
     t3 = time.perf_counter()
     out = check.gaps(prog, ref)
     out["loss_gaps"] = [abs(p - r) / abs(r) for p, r in zip(prog["losses"], ref["losses"])]
@@ -125,11 +120,10 @@ def main(argv=None):
     ap.add_argument("--faults", type=int, default=3)
     ap.add_argument("--out")
     args = ap.parse_args(argv)
-    from benchmark.program import Program
-
     seeds = [int(s) for s in args.seeds.split(",")]
     cell = next(w for w in harness.benchmark_spec()["workloads"] if w["name"] == args.workload)
     batch = scene_mod.load_json("mixes", cell["traffic"])["cameras_per_step"]
+    Program = harness.program_module(scene_mod.load_json("configs", cell["config"])).Program
     runs = [("program", s, Program, contextlib.nullcontext) for s in seeds]
     runs += [("control_tf32", s, ReferenceAsProgram, contextlib.nullcontext) for s in seeds[:args.control]]
     if batch > 1:

@@ -2,9 +2,11 @@
 check against the plain reference, and the result line.
 
 The cell is found by name in BENCHMARK.json; its configuration, traffic mix,
-limits and metric readers by their names under benchmark/. The window drives
-the program's refine step in a closed loop with one caller (each step issued
-when the previous returns), never reading a loss, and ends in
+limits and metric readers by their names under benchmark/, and the program
+and the reference by the configuration's "program" and "reference" keys
+(benchmark/programs/<program>.py, benchmark/reference/<reference>.py). The
+window drives the program's step in a closed loop with one caller (each step
+issued when the previous returns), never reading a loss, and ends in
 torch.cuda.synchronize().
 """
 
@@ -21,12 +23,13 @@ import resource
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import torch
 
 from benchmark import check, scene as scene_mod, trace as trace_mod
-from benchmark.program import Laps
+from benchmark.programs import Laps
 
 ROOT = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gaustar_tpu")
@@ -44,6 +47,7 @@ class Run:
     param_elements: int
     device_kind: str
     trace: trace_mod.Trace | None = None
+    operations_per_step: float | None = None  # the program module's step_operations, in a traced run
 
 
 def benchmark_spec() -> dict:
@@ -52,13 +56,34 @@ def benchmark_spec() -> dict:
 
 
 def cell_metrics(spec: dict, workload: str, traced: bool) -> list:
-    """The metric entries a run of `workload` reports."""
-    entries = spec["per_layer"] if traced else spec["end_to_end"]
-    return [m for m in entries if workload in m.get("workloads", [workload])]
+    """The metric entries a run of `workload` reads: the end-to-end metrics
+    that exist in the cell, or the per-layer metrics that move one of them.
+    A per-layer reader returns None where the cell's program gives it
+    nothing to read, and a per-layer `workloads` list names the cells that
+    must report it; so a new cell of a program already measured reads its
+    metrics from new files alone."""
+    end_to_end = [m for m in spec["end_to_end"] if workload in m.get("workloads", [workload])]
+    if traced:
+        moved = {m["name"] for m in end_to_end}
+        return [m for m in spec["per_layer"] if m["moves"] in moved]
+    return end_to_end
 
 
 def reader(name: str):
-    return importlib.import_module(f"benchmark.metrics.{name}")
+    """The reader of a metric: benchmark/metrics/<name>.py, or, for a name
+    split by the end-to-end metric it moves (`<name>.<split>`), the reader of
+    the part before the first dot."""
+    return importlib.import_module(f"benchmark.metrics.{name.split('.')[0]}")
+
+
+def program_module(config: dict) -> types.ModuleType:
+    """The module of the program the configuration names."""
+    return importlib.import_module(f"benchmark.programs.{config['program']}")
+
+
+def reference_module(config: dict) -> types.ModuleType:
+    """The module of the plain reference the configuration names."""
+    return importlib.import_module(f"benchmark.reference.{config['reference']}")
 
 
 def host_cpu() -> str:
@@ -115,7 +140,8 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, device="cud
              config: dict | None = None, make_program=None, log=print, parts: dict | None = None) -> dict:
     """One run; returns the result line's object. `config` replaces the
     configuration file's contents and `make_program(scene, config, device)`
-    the program (the CPU tests shrink the one and break the other); `parts`
+    the program's constructor (the CPU tests shrink the one and break the
+    other; the program's module still counts a step's work); `parts`
     holds the seconds of the set-up's parts before this call."""
     t0 = time.perf_counter() if t0 is None else t0
     parts = dict(parts or {})
@@ -125,8 +151,8 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, device="cud
     config = config or scene_mod.load_json("configs", cell["config"])
     mix = scene_mod.load_json("mixes", cell["traffic"])
     limits = scene_mod.load_json("limits", workload)
-    if make_program is None:
-        from benchmark.program import Program as make_program
+    programs = program_module(config)
+    make_program = make_program or programs.Program
     torch.backends.cuda.matmul.allow_tf32 = bool(config["tf32"])
     torch.backends.cudnn.allow_tf32 = bool(config["tf32"])
     on_card = torch.device(device).type == "cuda"
@@ -171,15 +197,19 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, device="cud
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     smi = nvidia_smi() if on_card else "not a card"
 
-    pixels = inputs.rig.width * inputs.rig.height * per_step
-    run = Run(setup_s, window_s, steps, pixels, per_step,
+    run = Run(setup_s, window_s, steps, programs.pixels_per_step(inputs, config, mix), per_step,
               sum(v.numel() for v in program.leaves().values()),
               torch.cuda.get_device_name() if on_card else "cpu")
     entries = cell_metrics(spec, workload, traced)
     breakdown = None
-    if traced:
-        targets = {getattr(reader(m["name"]), "CAPTURE", None) for m in entries} - {None}
+    # An end-to-end reader that names TRACE reads the traced steps in an
+    # untraced run too; they run after the window has closed.
+    if traced or any(getattr(reader(m["name"]), "TRACE", False) for m in entries):
+        observers = [reader(m["name"]) for m in entries] + ([programs] if traced else [])
+        targets = {getattr(mod, "CAPTURE", None) for mod in observers} - {None}
         run.trace = trace_mod.record(step, mix["trace_steps"], sorted(targets), on_card)
+    if traced:
+        run.operations_per_step = programs.step_operations(run)
         breakdown = trace_mod.breakdown(run.trace)
     metrics = {}
     for m in entries:
@@ -190,6 +220,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, device="cud
                   "count": cell["chips"], "memory_peak_bytes": peak}
     if traced:
         device_rec.update(busy_s=run.trace.busy_s(), window_s=run.trace.window_s)
+    if run.trace is not None:
         run.trace.captures.clear()
 
     # The check, on the card's memory the program no longer holds.
@@ -199,8 +230,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, device="cud
     if on_card:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    ref_mod = importlib.import_module(f"benchmark.reference.{config['reference']}")
-    reference = ref_mod.Reference(inputs, config["sh_degree"], config["lr_scale"])
+    reference = reference_module(config).Reference(inputs, config)
     ref_readings = check.reference_readings(reference, check_cams)
     ref_s = time.perf_counter() - t_ref
     numbers = check.gaps(readings, ref_readings)
@@ -214,9 +244,10 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, device="cud
         f"peak device memory {peak} bytes")
     log(f"# set-up parts (s; the check steps build the kernels in a fresh checkout): "
         f"{ {k: round(v, 3) for k, v in parts.items()} }")
-    if traced:
+    if run.trace is not None:
         log(f"# step time: {1e3 * window_s / steps:.3f} ms in the window, {1e3 * run.trace.window_s / run.trace.steps:.3f}"
-            f" ms traced (the profiler's own cost on the host)")
+            f" ms traced (the profiler's own cost on the host), {1e3 * run.trace.busy_s() / run.trace.steps:.3f} ms"
+            f" of it busy on the device")
     log(f"# host during the window: {host_window}")
     log(f"# steps issued in each second of the window: {[sum(1 for m in marks if k <= m < k + 1) for k in range(int(seconds) + 1)]}")
     log(f"# reference {ref_s:.3f} s; unmoved leaves {numbers['unmoved_leaves']}; losses program "

@@ -1,33 +1,25 @@
 """The system under test: gaustar_tpu_torch's refine step, built from the
-benchmark's inputs through the port's public constructors.
+benchmark's inputs through the port's public constructors, and the work a
+step does by the benchmark's own count.
 
-This is the one module of the benchmark that imports the program. The loop
-set-up copies what the port's refine loop does before its first step:
-fresh leaves from init_sugar, make_lr_fn(OptimizationParams(), lr scale),
-adam_init and zero unbind weights; every step is
-train.refine.train_step, with an int camera at one camera a step and a list
-of indices at more.
+Of the modules a run loads, only this one and the span metrics'
+(benchmark/spans.py) import the program. The loop set-up copies what the
+port's refine loop does before its first step: fresh leaves from
+init_sugar, make_lr_fn(OptimizationParams(), lr scale), adam_init and zero
+unbind weights; every step is train.refine.train_step, with an int camera
+at one camera a step and a list of indices at more.
 """
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
+from benchmark import bounds
+from benchmark.programs import Laps
 
-class Laps:
-    """Records into `parts` the seconds since the previous call (or since
-    it was made) under each name it is called with."""
-
-    def __init__(self, parts: dict):
-        self.parts, self.last = parts, time.perf_counter()
-
-    def __call__(self, name: str):
-        now = time.perf_counter()
-        self.parts[name] = now - self.last
-        self.last = now
+# The traced window keeps the blend calls' arguments for step_operations.
+CAPTURE = bounds.BLEND_CAPTURE
 
 
 class Program:
@@ -105,3 +97,21 @@ class Program:
         benchmark's inputs)."""
         for name in ("params", "model", "data", "opt", "unbind", "pre_sh_dc", "lr_fn"):
             setattr(self, name, None)
+
+
+def pixels_per_step(inputs, config: dict, mix: dict) -> int:
+    """The pixels a step trains: W x H x the mix's cameras a step."""
+    return inputs.rig.width * inputs.rig.height * mix["cameras_per_step"]
+
+
+def step_operations(run) -> float:
+    """The operations a step needs, counted from its inputs: both blends of
+    every render in the traced steps (bounds.blend_counts) a step, SSIM's
+    forward and backward a pixel, Adam an element of every parameter. The
+    step's other work (geometry, projection, sorting, the other losses) is
+    not counted, so this is a lower bound."""
+    t = run.trace
+    per_step = sum(c["fwd_ops"] + c["bwd_ops"] for c in bounds.blend_calls(t)) / t.steps
+    per_step += run.pixels_per_step * bounds.SSIM_OPS_PER_PIXEL
+    per_step += run.param_elements * bounds.ADAM_OPS_PER_ELEMENT
+    return per_step

@@ -78,7 +78,10 @@ def round_tf32(x):
 class Reference:
     """The model, its Adam state and the step, from the benchmark's inputs."""
 
-    def __init__(self, scene, sh_degree: int, lr_scale: float, tf32: bool = False):
+    def __init__(self, scene, config: dict, tf32: bool = False):
+        """`config`: the cell's configuration; its "sh_degree" and
+        "lr_scale" are read."""
+        sh_degree = config["sh_degree"]
         self.scene = scene
         self.sh_degree = sh_degree
         self.tf32 = tf32
@@ -112,7 +115,7 @@ class Reference:
         with torch.no_grad():
             self.ref_edge = edge_lengths(verts, self.edges)
             self.ref_area = face_areas_normals(verts, faces)[0]
-        self.spatial_lr_scale = lr_scale
+        self.spatial_lr_scale = config["lr_scale"]
 
     # -- the model --------------------------------------------------------
 

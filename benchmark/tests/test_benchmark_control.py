@@ -8,7 +8,7 @@ import pytest
 
 from benchmark import harness
 from benchmark.calibrate import ReferenceAsProgram, altered_gradient, half_batch
-from benchmark.program import Program
+from benchmark.programs.refine_step import Program
 from benchmark.tests.small import CELLS, small_config
 
 

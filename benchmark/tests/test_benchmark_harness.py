@@ -29,6 +29,8 @@ def test_cells_find_their_files_by_name():
         assert mix["cameras_per_step"] >= 1 and mix["check_steps"] >= 1 and mix["trace_steps"] >= 1
         importlib.import_module(f"benchmark.gt.{config['gt']['kind']}")
         assert hasattr(importlib.import_module(f"benchmark.reference.{config['reference']}"), "Reference")
+        program = harness.program_module(config)
+        assert all(hasattr(program, k) for k in ("Program", "pixels_per_step", "step_operations"))
     for entry in spec["end_to_end"] + spec["per_layer"]:
         assert callable(harness.reader(entry["name"]).read)
     for entry in spec["configs"]:
@@ -72,10 +74,53 @@ def test_cell_runs_end_to_end_on_cpu(cell, traced, capsys):
     assert set(line["metrics"]) <= names
     if traced:
         assert {"busy_s", "window_s"} <= set(line["device"]) and "breakdown" in line
-        assert "kernel_launches_per_iter" in line["metrics"]
+        assert "kernel_launches_per_iter" in {name.split(".")[0] for name in line["metrics"]}
     else:
-        assert set(line["metrics"]) == names
-        assert line["metrics"]["train_mpix_s"]["value"] > 0
+        # A CPU run has no device time for a reader of the traced steps.
+        on_host = {name for name in names if not getattr(harness.reader(name), "TRACE", False)}
+        assert on_host <= set(line["metrics"])
+        assert all(m["value"] > 0 for m in line["metrics"].values())
+
+
+def test_each_cell_reports_what_its_metrics_move():
+    """Every cell reports setup_s and another end-to-end metric; a per-layer
+    metric runs in the cells that report the metric it moves, and its
+    `workloads` list names only such cells; each cell reads some per-layer
+    metric."""
+    spec = harness.benchmark_spec()
+    for cell in spec["workloads"]:
+        end_to_end = {m["name"] for m in harness.cell_metrics(spec, cell["name"], False)}
+        assert "setup_s" in end_to_end and len(end_to_end) >= 2
+        per_layer = harness.cell_metrics(spec, cell["name"], True)
+        assert per_layer and all(m["moves"] in end_to_end for m in per_layer)
+    cells = {w["name"] for w in spec["workloads"]}
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        assert set(m.get("workloads", [])) <= cells
+    for m in spec["per_layer"]:
+        for cell in m.get("workloads", []):
+            assert m in harness.cell_metrics(spec, cell, True)
+
+
+def test_device_metrics_read_the_busy_time():
+    """device_mpix_s and device_mfu divide by the union of the traced steps'
+    device intervals, overlaps counted once and idle gaps not at all."""
+    from benchmark import bounds, trace
+    from benchmark.metrics import device_mfu, device_mpix_s
+
+    device = [("a", 1.000, 1.004), ("b", 1.003, 1.006), ("c", 1.008, 1.010), ("d", 1.030, 1.040)]
+    t = trace.Trace(steps=2, window=(1.0, 1.020), issued=1.015, device=device, kernels=device, runtime=[], host=[],
+                    captures={})
+    run = harness.Run(setup_s=10.0, window_s=51.0, steps=1000, pixels_per_step=1600 * 1024, cameras_per_step=1,
+                      param_elements=100, device_kind="NVIDIA H100 80GB HBM3", trace=t, operations_per_step=4.0e9)
+    assert device_mpix_s.TRACE is True
+    assert abs(t.busy_s() - 0.008) < 1e-12
+    assert device_mpix_s.read(run) == 1600 * 1024 * 2 / t.busy_s() / 1e6
+    peak = bounds.PEAKS["NVIDIA H100 80GB HBM3"]["f32_flops"]
+    assert device_mfu.read(run) == 100.0 * 4.0e9 * 2 / (peak * t.busy_s())
+    idle = trace.Trace(steps=2, window=(1.0, 1.020), issued=1.015, device=[], kernels=[], runtime=[], host=[],
+                       captures={})
+    run.trace = idle
+    assert device_mpix_s.read(run) is None and device_mfu.read(run) is None
 
 
 def test_command_refuses_without_a_card(tmp_path):

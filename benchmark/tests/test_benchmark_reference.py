@@ -7,7 +7,7 @@ import pytest
 import torch
 
 from benchmark import check, scene
-from benchmark.program import Program
+from benchmark.programs.refine_step import Program
 from benchmark.reference import blend
 from benchmark.reference.refine_step import Reference
 from benchmark.tests.small import CELLS, small_config
@@ -25,7 +25,7 @@ def test_reference_matches_the_port(cell):
         steps = scene.camera_schedule(seed, inputs.rig.n, batch)
         cams = [next(steps) for _ in range(3)]
         prog = check.program_readings(Program(inputs, config, "cpu"), cams)
-        ref = check.reference_readings(Reference(inputs, config["sh_degree"], config["lr_scale"]), cams)
+        ref = check.reference_readings(Reference(inputs, config), cams)
         gaps = check.gaps(prog, ref)
         assert abs(prog["losses"][0] - ref["losses"][0]) <= 1e-5 * ref["losses"][0]
         assert gaps["grad_gap"] <= 1e-4

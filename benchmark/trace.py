@@ -9,7 +9,8 @@ torch.cuda.synchronize() before the steps to the end of one after them. On
 the CPU (the tests) the host operations and a record_function span stand in.
 The profiler's Chrome trace is written to a temporary file under TMPDIR,
 read and deleted. A per-layer metric may name a program function to observe
-(`CAPTURE = (module, attribute)` in its reader): during the traced steps that
+(`CAPTURE = (module, attribute)` in its reader), and so may the cell's
+program module (for its step_operations): during the traced steps that
 function is wrapped to keep its arguments, which the reader then reads from
 `Trace.captures[(module, attribute)]`. The same steps are run once untraced
 with the capture on before the traced window, so that the memory the kept
