@@ -19,8 +19,18 @@ no general uint32 multiply): each corner coordinate times its prime, masked to
 2^43, so the indices are equal to the JAX package's.
 
 The tables' gradient is an index-accumulate over the gathered rows (atomic
-adds on the card), so its summation order differs from the JAX package's
-scatter-add: equal within float32 rounding, not bitwise.
+adds on the card) in float64, rounded once to float32: equal to the JAX
+package's float32 scatter-add within float32 rounding, not bitwise.
+
+`FieldConfig()` is the JAX package's reduced field. `instant_ngp()` is the
+field at Instant-NGP's published widths (Müller et al. 2022, §4 and Table 1):
+16 levels of 2^19 rows, coarse levels indexed 1:1 where their vertices fit
+in the table, the colour net fed the density net's 16 outputs and the view
+direction's 16 spherical-harmonic values (tiny-cuda-nn's degree 4).
+
+`render_rays` opens the spans field.sample, field.encode, field.mlp and
+field.composite (utils/profiling) and counts `field_rays` and
+`field_samples`.
 """
 
 from __future__ import annotations
@@ -32,6 +42,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gaustar_tpu_torch.ops.sh import sh_basis
+from gaustar_tpu_torch.utils import profiling
 from gaustar_tpu_torch.utils.general import resolve_device
 
 _PRIMES = (1, 2654435761, 805459861)
@@ -52,6 +64,26 @@ class FieldConfig:
     aabb_max: tuple = (1.0, 1.0, 1.0)
     n_samples: int = 128
     density_scale: float = 25.0
+    # Instant-NGP's options; the defaults keep the JAX package's field.
+    sh_degree: int = 0  # the view direction as tiny-cuda-nn's degree-d SH (d^2 values); 0: the raw direction
+    feed_density: bool = False  # the colour net takes the density net's whole output, log-density included
+    dense_coarse: bool = False  # 1:1 rows at each level whose (N_l + 1)^3 vertices fit in the table
+
+    @property
+    def color_inputs(self) -> int:
+        """Width of the colour net's input."""
+        geo = self.geo_features + (1 if self.feed_density else 0)
+        return geo + (self.sh_degree**2 if self.sh_degree else 3)
+
+
+def instant_ngp(**overrides) -> FieldConfig:
+    """The field at Instant-NGP's published widths: L 16, F 2, T 2^19,
+    N_min 16, 64-wide MLPs (32 -> 64 -> 16 and 32 -> 64 -> 64 -> 3), the
+    colour net fed the 16 density outputs and the SH-4 direction encoding,
+    coarse levels 1:1; N_max 2048 and the rest as given."""
+    base = dict(n_levels=16, table_size=1 << 19, n_features=2, base_res=16, max_res=2048, geo_features=15,
+                hidden=64, sh_degree=4, feed_density=True, dense_coarse=True)
+    return FieldConfig(**{**base, **overrides})
 
 
 class HashGridField(nn.Module):
@@ -72,7 +104,7 @@ def _mlp_layers(rng, cfg: FieldConfig):
 
     in_dim = cfg.n_levels * cfg.n_features
     sigma = [dense(in_dim, cfg.hidden), dense(cfg.hidden, 1 + cfg.geo_features)]
-    color = [dense(cfg.geo_features + 3, cfg.hidden), dense(cfg.hidden, cfg.hidden), dense(cfg.hidden, 3)]
+    color = [dense(cfg.color_inputs, cfg.hidden), dense(cfg.hidden, cfg.hidden), dense(cfg.hidden, 3)]
     return sigma, color
 
 
@@ -95,33 +127,68 @@ def level_resolutions(cfg: FieldConfig) -> list[int]:
     return [int(np.floor(cfg.base_res * growth**lvl)) for lvl in range(cfg.n_levels)]
 
 
-def _level_corners(pts01: torch.Tensor, res: int, table_size: int):
+def level_dense(cfg: FieldConfig) -> list[bool]:
+    """Whether each level is indexed 1:1 (cfg.dense_coarse and its (N_l + 1)^3
+    vertices fit in the table) rather than hashed."""
+    return [cfg.dense_coarse and (res + 1) ** 3 <= cfg.table_size for res in level_resolutions(cfg)]
+
+
+def _level_corners(pts01: torch.Tensor, res: int, table_size: int, dense: bool = False):
     """(table rows [N, 8] int64, trilinear weights [N, 8]) of the 8 corners
-    of each point's cell at one level."""
+    of each point's cell at one level: x + y (res + 1) + z (res + 1)^2 where
+    `dense`, else the spatial hash modulo the table size."""
     x = pts01 * res
     x0 = torch.floor(x)
     frac = x - x0
     corners = torch.tensor(_CORNERS, device=pts01.device)
     c = x0.to(torch.int64)[:, None, :] + corners[None]
+    w3 = torch.where(corners[None] == 1, frac[:, None, :], 1.0 - frac[:, None, :])
+    w = w3[..., 0] * w3[..., 1] * w3[..., 2]  # (x y) z, in this order on every device
+    if dense:
+        return c[..., 0] + (res + 1) * (c[..., 1] + (res + 1) * c[..., 2]), w
     h = (c[..., 0] * _PRIMES[0]) & _MASK32
     h = h ^ ((c[..., 1] * _PRIMES[1]) & _MASK32)
     h = h ^ ((c[..., 2] * _PRIMES[2]) & _MASK32)
-    w = torch.where(corners[None] == 1, frac[:, None, :], 1.0 - frac[:, None, :]).prod(dim=-1)
     return h % table_size, w
 
 
 def hash_indices(pts01: torch.Tensor, cfg: FieldConfig) -> torch.Tensor:
     """The table rows [L, N, 8] that hash_encode reads for pts01 [N, 3]."""
-    return torch.stack([_level_corners(pts01, res, cfg.table_size)[0] for res in level_resolutions(cfg)])
+    return torch.stack([_level_corners(pts01, res, cfg.table_size, dense)[0]
+                        for res, dense in zip(level_resolutions(cfg), level_dense(cfg))])
+
+
+class _GatherRows(torch.autograd.Function):
+    """table[rows] whose backward adds each gathered row's gradient into the
+    table's with index_add_ (atomic adds on the card, as tiny-cuda-nn's
+    encoding does), in float64 and rounded once to the table's dtype, so
+    that the order the atomics take leaves the result as it is (but for
+    rare ties). PyTorch's own indexing backward sorts the rows and sums
+    each row's duplicates in one thread, so its time follows the longest
+    run of one row: the coarse levels' rows, which thousands of samples
+    share, made it vary by 10% from one set of views to the next."""
+
+    @staticmethod
+    def forward(ctx, table, rows):
+        ctx.save_for_backward(rows)
+        ctx.n_rows = table.shape[0]
+        return table[rows]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (rows,) = ctx.saved_tensors
+        out = grad.new_zeros((ctx.n_rows, grad.shape[-1]), dtype=torch.float64)
+        out.index_add_(0, rows.reshape(-1), grad.reshape(-1, grad.shape[-1]).to(torch.float64))
+        return out.to(grad.dtype), None
 
 
 def hash_encode(tables: torch.Tensor, pts01: torch.Tensor, cfg: FieldConfig) -> torch.Tensor:
     """Multi-resolution hash encoding: pts01 [N, 3] in [0, 1] -> [N, L*F].
     `tables` [L, T, F]; each corner gathers one F-wide row."""
     feats = []
-    for lvl, res in enumerate(level_resolutions(cfg)):
-        h, w = _level_corners(pts01, res, cfg.table_size)
-        feats.append((tables[lvl][h] * w[..., None]).sum(dim=1))  # [N, F]
+    for lvl, (res, dense) in enumerate(zip(level_resolutions(cfg), level_dense(cfg))):
+        h, w = _level_corners(pts01, res, cfg.table_size, dense)
+        feats.append((_GatherRows.apply(tables[lvl], h) * w[..., None]).sum(dim=1))  # [N, F]
     return torch.cat(feats, dim=-1)
 
 
@@ -140,21 +207,33 @@ def _aabb(cfg: FieldConfig, dev):
 
 
 def _density_from_encoding(field, enc, inside, cfg: FieldConfig):
+    """(sigma [N], the colour net's features [N, G]): the density net's
+    outputs after the first, or all of them with cfg.feed_density."""
     out = _mlp(field.mlp_sigma, enc)
     sigma = torch.exp(torch.clamp(out[:, 0], -10.0, 10.0)) * cfg.density_scale
-    return torch.where(inside, sigma, torch.zeros_like(sigma)), out[:, 1:]
+    return torch.where(inside, sigma, torch.zeros_like(sigma)), (out if cfg.feed_density else out[:, 1:])
+
+
+def _unit_coords(pts: torch.Tensor, cfg: FieldConfig):
+    """(pts in the AABB's [0, 1] cube, clamped [N, 3]; inside the AABB [N])."""
+    lo, hi = _aabb(cfg, pts.device)
+    pts01 = (pts - lo) / (hi - lo)
+    inside = ((pts01 >= 0) & (pts01 <= 1)).all(dim=-1)
+    return torch.clamp(pts01, 0.0, 1.0), inside
 
 
 def query_density(field: HashGridField, pts: torch.Tensor, cfg: FieldConfig):
     """pts [N, 3] world -> (sigma [N], geo [N, G]); sigma 0 outside the AABB."""
-    lo, hi = _aabb(cfg, pts.device)
-    pts01 = (pts - lo) / (hi - lo)
-    inside = ((pts01 >= 0) & (pts01 <= 1)).all(dim=-1)
-    enc = hash_encode(field.tables, torch.clamp(pts01, 0.0, 1.0), cfg)
+    pts01, inside = _unit_coords(pts, cfg)
+    enc = hash_encode(field.tables, pts01, cfg)
     return _density_from_encoding(field, enc, inside, cfg)
 
 
-def query_color(field, geo: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+def query_color(field, geo: torch.Tensor, dirs: torch.Tensor, cfg: FieldConfig | None = None) -> torch.Tensor:
+    """Colour [N, 3] from the density net's features and unit directions
+    [N, 3], the directions SH-encoded where cfg.sh_degree is set."""
+    if cfg is not None and cfg.sh_degree:
+        dirs = sh_basis(cfg.sh_degree - 1, dirs)
     return torch.sigmoid(_mlp(field.mlp_color, torch.cat([geo, dirs], dim=-1)))
 
 
@@ -170,7 +249,48 @@ def render_rays(field: HashGridField, origins, dirs, cfg: FieldConfig, jitter=No
     [G, G, G] grid) the slab is first tightened to the occupied span
     (tighten_ray_bounds)."""
     dev = origins.device
-    lo, hi = _aabb(cfg, dev)
+    n = cfg.n_samples
+    r = origins.shape[0]
+    with profiling.span("field.sample"):
+        tmin, tmax = ray_bounds(origins, dirs, cfg, occupancy)
+        frac = (torch.arange(n, dtype=torch.float32, device=dev) + 0.5) / n
+        if isinstance(jitter, torch.Generator):
+            jitter = torch.rand((r, n), generator=jitter, device=dev)
+        if jitter is not None:
+            frac = frac[None] + (torch.as_tensor(jitter, dtype=torch.float32, device=dev) - 0.5) / n
+        else:
+            frac = frac[None].expand(r, n)
+        span = tmax - tmin
+        ts = tmin[:, None] + frac * span[:, None]  # [R, S]
+        delta = span[:, None] / n
+        pts = origins[:, None, :] + dirs[:, None, :] * ts[..., None]  # [R, S, 3]
+    profiling.count("field_rays", r)
+    profiling.count("field_samples", r * n)
+
+    with profiling.span("field.encode"):
+        pts01, inside = _unit_coords(pts.reshape(-1, 3), cfg)
+        enc = hash_encode(field.tables, pts01, cfg)
+    with profiling.span("field.mlp"):
+        sigma, geo = _density_from_encoding(field, enc, inside, cfg)
+        rgb = query_color(field, geo, dirs[:, None].expand(pts.shape).reshape(-1, 3), cfg)
+        sigma = sigma.reshape(ts.shape)
+        rgb = rgb.reshape(*ts.shape, 3)
+
+    with profiling.span("field.composite"):
+        alpha = 1.0 - torch.exp(-sigma * delta)
+        trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
+        trans = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=-1)
+        w = alpha * trans
+        out_rgb = (w[..., None] * rgb).sum(dim=1)
+        out_alpha = w.sum(dim=1)
+        out_depth = (w * ts).sum(dim=1) / torch.clamp_min(out_alpha, 1e-8)
+    return out_rgb, out_alpha, out_depth
+
+
+def ray_bounds(origins, dirs, cfg: FieldConfig, occupancy: torch.Tensor | None = None):
+    """(tmin [R], tmax [R]): each ray's slab through the AABB, tightened to
+    the occupied span where an occupancy grid is given."""
+    lo, hi = _aabb(cfg, origins.device)
     inv = 1.0 / torch.where(dirs.abs() < 1e-9, torch.full_like(dirs, 1e-9), dirs)
     t0 = (lo[None] - origins) * inv
     t1 = (hi[None] - origins) * inv
@@ -178,34 +298,7 @@ def render_rays(field: HashGridField, origins, dirs, cfg: FieldConfig, jitter=No
     tmax = torch.maximum(torch.maximum(t0, t1).amin(dim=-1), tmin + 1e-3)
     if occupancy is not None:
         tmin, tmax = tighten_ray_bounds(occupancy, origins, dirs, tmin, tmax, cfg)
-
-    n = cfg.n_samples
-    r = origins.shape[0]
-    frac = (torch.arange(n, dtype=torch.float32, device=dev) + 0.5) / n
-    if isinstance(jitter, torch.Generator):
-        jitter = torch.rand((r, n), generator=jitter, device=dev)
-    if jitter is not None:
-        frac = frac[None] + (torch.as_tensor(jitter, dtype=torch.float32, device=dev) - 0.5) / n
-    else:
-        frac = frac[None].expand(r, n)
-    span = tmax - tmin
-    ts = tmin[:, None] + frac * span[:, None]  # [R, S]
-    delta = span[:, None] / n
-    pts = origins[:, None, :] + dirs[:, None, :] * ts[..., None]  # [R, S, 3]
-
-    sigma, geo = query_density(field, pts.reshape(-1, 3), cfg)
-    rgb = query_color(field, geo, dirs[:, None].expand(pts.shape).reshape(-1, 3))
-    sigma = sigma.reshape(ts.shape)
-    rgb = rgb.reshape(*ts.shape, 3)
-
-    alpha = 1.0 - torch.exp(-sigma * delta)
-    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
-    trans = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=-1)
-    w = alpha * trans
-    out_rgb = (w[..., None] * rgb).sum(dim=1)
-    out_alpha = w.sum(dim=1)
-    out_depth = (w * ts).sum(dim=1) / torch.clamp_min(out_alpha, 1e-8)
-    return out_rgb, out_alpha, out_depth
+    return tmin, tmax
 
 
 @torch.no_grad()

@@ -134,6 +134,16 @@ def _basis_terms(deg: int, x, y, z):
     return terms
 
 
+def sh_basis(deg: int, dirs: torch.Tensor) -> torch.Tensor:
+    """The real SH basis of bands 0..deg at unit directions, in eval_sh's band
+    order and signs: dirs [N, 3] -> [N, (deg+1)**2]. At deg 3 these are the
+    16 values of tiny-cuda-nn's degree-4 SphericalHarmonics encoding."""
+    x, y, z = dirs[:, 0], dirs[:, 1], dirs[:, 2]
+    terms = _basis_terms(deg, x, y, z)
+    terms[0] = torch.full_like(x, C0)
+    return torch.stack(terms, dim=-1)
+
+
 def sh_to_rgb(deg: int, sh: torch.Tensor, positions: torch.Tensor, campos: torch.Tensor) -> torch.Tensor:
     """Rasterizer-style SH color (computeColorFromSH, forward.cu:20-71): eval at
     the view direction, +0.5, clamp >= 0. sh [N, K, C] -> [N, C].

@@ -13,6 +13,11 @@ from the seed. Only the samples' jitter differs (the JAX package draws it
 with jax.random, which torch cannot reproduce): here it comes from a
 torch.Generator seeded with the seed, or from the caller (`jitter`).
 
+`field_step` is one optimizer step on rays through pixels of one or more
+cameras; `train_field` calls it with its own draws. It opens the spans
+field.step, field.rays, field.loss, field.backward and field.adam
+(utils/profiling), around render_rays' own.
+
 `last_train` and `last_extract` keep the last call's stage times.
 """
 
@@ -29,6 +34,7 @@ from gaustar_tpu_torch.cameras import Camera
 from gaustar_tpu_torch.mesh import tsdf as tsdf_mod
 from gaustar_tpu_torch.mesh.surgery import Mesh, get_outlier_cc_mask
 from gaustar_tpu_torch.models import neural_field as nf
+from gaustar_tpu_torch.utils import profiling
 from gaustar_tpu_torch.utils.general import StepClock, device_ms, l2norm
 
 # The last train_field call: "occupancy_ms" (carving, device), "step_ms" (each
@@ -70,6 +76,37 @@ def rays_for_pixels(camera: Camera, px: torch.Tensor, py: torch.Tensor):
     d_world = d_local @ camera.view[:3, :3]  # R^T applied to rows
     d_world = d_world / l2norm(d_world)
     return camera.camera_center.expand(d_world.shape), d_world
+
+
+def field_step(field: nf.HashGridField, opt, cameras: list[Camera], images: torch.Tensor, masks: torch.Tensor,
+               cam_idx, px: torch.Tensor, py: torch.Tensor, jitter, occupancy, cfg: InitMeshConfig,
+               field_cfg: nf.FieldConfig) -> torch.Tensor:
+    """One optimizer step of the field on the rays through integer pixels
+    (px[k], py[k]) [K, n] of the cameras cam_idx[k] (K ints): their GT
+    colours and masks from images [C, H, W, 3] and masks [C, H, W] (float
+    tensors on the cameras' device), render_rays with `jitter` and
+    `occupancy`, the masked photometric loss plus cfg.mask_loss_weight x the
+    mask loss, the backward pass and opt.step(). Returns the loss (a detached
+    device tensor, before the step)."""
+    with profiling.span("field.step"):
+        with profiling.span("field.rays"):
+            rays = [rays_for_pixels(cameras[ci], px[k].to(torch.float32) + 0.5, py[k].to(torch.float32) + 0.5)
+                    for k, ci in enumerate(cam_idx)]
+            o = torch.cat([r[0] for r in rays])
+            d = torch.cat([r[1] for r in rays])
+            gt_rgb = torch.cat([images[ci][py[k], px[k]] for k, ci in enumerate(cam_idx)])
+            gt_mask = torch.cat([masks[ci][py[k], px[k]] for k, ci in enumerate(cam_idx)])
+        rgb, alpha, _ = nf.render_rays(field, o, d, field_cfg, jitter, occupancy=occupancy)
+        with profiling.span("field.loss"):
+            photo = ((rgb - gt_rgb) ** 2 * gt_mask[:, None]).mean()
+            mask_l = ((alpha - gt_mask) ** 2).mean()
+            loss = photo + cfg.mask_loss_weight * mask_l
+        with profiling.span("field.backward"):
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+        with profiling.span("field.adam"):
+            opt.step()
+    return loss.detach()
 
 
 def train_field(
@@ -125,20 +162,10 @@ def train_field(
             pick = fg[rng.integers(0, len(fg), n // 2)]
             py[: n // 2] = pick[:, 0]
             px[: n // 2] = pick[:, 1]
-        px_t = torch.as_tensor(px, device=dev)
-        py_t = torch.as_tensor(py, device=dev)
-        o, d = rays_for_pixels(cameras[ci], px_t.to(torch.float32) + 0.5, py_t.to(torch.float32) + 0.5)
-        gt_rgb = images_t[ci, py_t, px_t]
-        gt_mask = masks_t[ci, py_t, px_t]
-
-        rgb, alpha, _ = nf.render_rays(field, o, d, field_cfg, gen if jitter is None else jitter(it),
-                                       occupancy=occ)
-        photo = ((rgb - gt_rgb) ** 2 * gt_mask[:, None]).mean()
-        mask_l = ((alpha - gt_mask) ** 2).mean()
-        loss = photo + cfg.mask_loss_weight * mask_l
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
+        px_t = torch.as_tensor(px, device=dev)[None]
+        py_t = torch.as_tensor(py, device=dev)[None]
+        loss = field_step(field, opt, cameras, images_t, masks_t, [ci], px_t, py_t,
+                          gen if jitter is None else jitter(it), occ, cfg, field_cfg)
         clock.mark()
         if log_fn and (it + 1) % 200 == 0:
             log_fn({"iteration": it + 1, "loss": float(loss.detach())})
